@@ -1,0 +1,326 @@
+"""DTC pseudo-point sparse GP with temporal structured noise.
+
+Counterpart of ``gpar_at_scale_tpu/gp/dtc.py``.  The conditional GP is
+f = f_x + f_t: f_x over the previous outputs is approximated with M inducing
+points, and f_t is exact through the LGSSM, whose covariance
+Sigma_y = K_time + s2 I is a structured noise matrix inside the DTC bound.
+With L = chol(K_uu) and W any square root of Sigma_y^-1,
+
+    alpha = W (y - m),  beta = W K_fu,  A = L^-1 beta^T,  Lam = A A^T + I
+    dtc   = -1/2 [ N log 2pi + log det Sigma_y + log det Lam
+                   + |alpha|^2 - |chol(Lam)^-1 A alpha|^2 ]
+
+and q(eps) = N(m_eps, D^-1) with D = A A^T + I, m_eps = D^-1 A alpha; the
+predictive loads f_x = K_*u L^-T eps.
+
+Whitening engines (``filter_fn``):
+
+* ``"dense"`` -- chol(Sigma_y) and one triangular solve with M+1
+  right-hand sides, for N <= ``DENSE_N_MAX``.
+* ``"pallas"`` -- the CUDA blocked-scan kernels K1/K2/K3
+  (``ops/whiten.py``); the name is the JAX package's, so one configuration
+  drives both.  The whitened Gram is formed in float64 and the M x M algebra
+  after it runs in float64 (a float32 Gram at N = 1e6 can make G_b + K_uu
+  indefinite), so this branch returns float64 intermediates.
+* a callable ``(lgssm, Y) -> FilterResult`` -- e.g. the sequential
+  ``ssm.kalman.kalman_filter``.
+* ``None`` -- auto: ``"dense"`` when (time_kernel, t) are given and
+  N <= DENSE_N_MAX, the kernel path above that.  The JAX package sends
+  large N to its XLA ``"blocked"`` engine, whose custom gradient is training
+  work; without training the kernel path is the forward engine here.
+
+This slice has no gradients, no Monte-Carlo predictive and no iid-noise
+variants (``dtc_objective_iid``, ``titsias_elbo``, ``predict_sparse_iid``);
+see ROADMAP.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from gpar_at_scale_torch.kernels.base import Kernel, _as_2d
+from gpar_at_scale_torch.ssm.kalman import kalman_filter
+from gpar_at_scale_torch.ssm.markov import LGSSM, lgssm_of
+from gpar_at_scale_torch.utils.psd import (
+    cho_solve,
+    cholesky_psd,
+    default_jitter,
+    logdet_from_chol,
+    solve_lower,
+)
+
+_LOG_2PI = 1.8378770664093453
+
+# Largest N for which the auto dispatch materializes the dense N x N temporal
+# covariance (the JAX package's bound).
+DENSE_N_MAX = 2048
+
+
+class DTCIntermediates(NamedTuple):
+    """Whitened-Gram quantities shared by the objective and q(u)."""
+
+    aa: torch.Tensor  # scalar (y-m)^T Sigma^-1 (y-m)
+    g: torch.Tensor  # (M,)   K_fu^T Sigma^-1 (y-m)
+    Gb: torch.Tensor  # (M, M) K_fu^T Sigma^-1 K_fu
+    L_uu: torch.Tensor  # (M, M) chol(K_uu)
+    logdet_noise: torch.Tensor  # scalar, log det Sigma_y
+
+
+def _gram_from_white(white):
+    """(N, M+1) whitened columns [alpha | beta] -> (aa, g, Gb)."""
+    alpha, beta = white[:, 0], white[:, 1:]
+    return alpha @ alpha, beta.T @ alpha, beta.T @ beta
+
+
+def dense_whiten(time_kernel: Kernel, t, R, batch):
+    """Dense whitening: (L^-1 batch, log det Sigma_y) with
+    L = chol(K_time + diag(R))."""
+    t = t.to(batch.dtype)
+    R = torch.as_tensor(R, dtype=batch.dtype, device=t.device).expand(t.shape[0])
+    L = torch.linalg.cholesky(time_kernel(t[:, None], t[:, None]) + torch.diag(R))
+    return solve_lower(L, batch), logdet_from_chol(L)
+
+
+def _whiten_all(
+    out_kernel: Kernel,
+    V,
+    Z,
+    lgssm: LGSSM,
+    y,
+    mean,
+    uu_ridge,
+    filter_fn=None,
+    *,
+    time_kernel=None,
+    t=None,
+) -> DTCIntermediates:
+    """Whiten [y - mean | K_fu] through Sigma_y and reduce to Gram form.
+
+    uu_ridge: ridge added to K_uu before factorization; ``"auto"`` uses
+    mean(lgssm.R), the observation noise (see the JAX package)."""
+    V, Z = _as_2d(V), _as_2d(Z)
+    n, m = y.shape[0], Z.shape[0]
+    Kfu = out_kernel(V, Z)
+    Kuu = out_kernel(Z, Z)
+    if isinstance(uu_ridge, str) and uu_ridge == "auto":
+        uu_ridge = lgssm.R.mean()
+    if uu_ridge is not None:
+        Kuu = Kuu + uu_ridge * torch.eye(m, dtype=Kuu.dtype, device=Kuu.device)
+    batch = torch.cat([(y - mean)[:, None], Kfu], dim=1)  # (N, M+1)
+
+    if filter_fn is None and time_kernel is not None:
+        filter_fn = "dense" if n <= DENSE_N_MAX else "pallas"
+
+    if filter_fn == "pallas":
+        from gpar_at_scale_torch.ops.whiten import whiten_gram
+
+        G, logdet_noise = whiten_gram(lgssm, batch)
+        # float64 factor with the working precision's relative jitter, as
+        # the JAX package applies to its float32 K_uu.
+        L_uu = cholesky_psd(Kuu.double(), default_jitter(Kuu.dtype))
+        aa, g, Gb = G[0, 0], G[1:, 0], G[1:, 1:]
+    elif filter_fn == "dense":
+        if time_kernel is None or t is None:
+            raise ValueError("dense whitening requires time_kernel and t")
+        white, logdet_noise = dense_whiten(time_kernel, t, lgssm.R, batch)
+        L_uu = cholesky_psd(Kuu)
+        aa, g, Gb = _gram_from_white(white)
+    else:
+        if filter_fn is None:
+            filter_fn = kalman_filter
+        res = filter_fn(lgssm, batch)
+        white = res.v / torch.sqrt(res.S)[:, None]
+        L_uu = cholesky_psd(Kuu)
+        aa, g, Gb = _gram_from_white(white)
+        logdet_noise = torch.log(res.S).sum()
+    return DTCIntermediates(aa=aa, g=g, Gb=Gb, L_uu=L_uu, logdet_noise=logdet_noise)
+
+
+def _lam_chol(inter: DTCIntermediates):
+    """chol(A A^T + I) with A A^T = L_uu^-1 Gb L_uu^-T from the Gram form."""
+    AAt = solve_lower(inter.L_uu, solve_lower(inter.L_uu, inter.Gb).T)
+    Lam = AAt + torch.eye(AAt.shape[0], dtype=AAt.dtype, device=AAt.device)
+    return torch.linalg.cholesky(0.5 * (Lam + Lam.T))
+
+
+def dtc_objective(
+    out_kernel: Kernel,
+    time_lgssm: LGSSM,
+    V,
+    Z,
+    y,
+    mean=0.0,
+    uu_ridge="auto",
+    filter_fn=None,
+    *,
+    time_kernel=None,
+    t=None,
+):
+    """The DTC evidence bound, value only, in the P-form of the JAX package:
+    with P = Gb + K_uu, log det Lam = log det P - log det K_uu and
+    |chol(Lam)^-1 L_uu^-1 g|^2 = g^T P^-1 g."""
+    inter = _whiten_all(
+        out_kernel, V, Z, time_lgssm, y, mean, uu_ridge, filter_fn,
+        time_kernel=time_kernel, t=t,
+    )
+    n = y.shape[0]
+    Kuu_r = inter.L_uu @ inter.L_uu.T
+    L_P = torch.linalg.cholesky(inter.Gb + Kuu_r)
+    wp = solve_lower(L_P, inter.g)
+    logdet_lam = logdet_from_chol(L_P) - logdet_from_chol(inter.L_uu)
+    quad = inter.aa - (wp * wp).sum()
+    return -0.5 * (n * _LOG_2PI + inter.logdet_noise + logdet_lam + quad)
+
+
+class QU(NamedTuple):
+    """Whitened pseudo-point posterior q(eps) = N(m_eps, D^-1); the latent
+    loads as f_x(.) = K_.u L_uu^-T eps."""
+
+    m_eps: torch.Tensor  # (M,)
+    L_D: torch.Tensor  # (M, M) chol(D), D = A A^T + I
+    L_uu: torch.Tensor  # (M, M) chol(K_uu)
+    Z: torch.Tensor  # (M, D) inducing inputs
+
+
+def compute_q_u(
+    out_kernel: Kernel,
+    time_lgssm: LGSSM,
+    V,
+    Z,
+    y,
+    mean=0.0,
+    uu_ridge="auto",
+    filter_fn=None,
+    *,
+    time_kernel=None,
+    t=None,
+) -> QU:
+    """Closed-form whitened posterior over the inducing points, prior mean
+    subtracted.  On the kernel path its factors are float64."""
+    inter = _whiten_all(
+        out_kernel, V, Z, time_lgssm, y, mean, uu_ridge, filter_fn,
+        time_kernel=time_kernel, t=t,
+    )
+    L_D = _lam_chol(inter)
+    m_eps = cho_solve(L_D, solve_lower(inter.L_uu, inter.g))
+    return QU(m_eps=m_eps, L_D=L_D, L_uu=inter.L_uu, Z=_as_2d(Z))
+
+
+class _DenseSmooth(NamedTuple):
+    mean: torch.Tensor  # (N, B) posterior means of f_t per column
+    var: torch.Tensor  # (N,)   posterior marginal variances
+
+
+def _dense_smoother(time_kernel: Kernel, t_s, noise_s):
+    """Dense equivalent of the RTS smoother over the spliced series:
+    E[f] = K (K + diag(noise))^-1 y, Var[f] = diag(K - K (K + D)^-1 K)."""
+
+    def smooth(lgssm, cols):
+        del lgssm  # the same temporal posterior, computed densely
+        t2 = t_s[:, None]
+        n_all = t_s.shape[0]
+        K = time_kernel(t2, t2)
+        Sigma = K + torch.diag(noise_s.expand(n_all))
+        L = torch.linalg.cholesky(Sigma)
+        Wb = solve_lower(L, torch.cat([K, cols], dim=1))
+        W = Wb[:, :n_all]  # L^-1 K: W^T W = K Sigma^-1 K
+        mean = W.T @ Wb[:, n_all:]
+        var = time_kernel.diag_part(t2) - (W * W).sum(0)
+        return _DenseSmooth(mean=mean, var=torch.clamp(var, min=0.0))
+
+    return smooth
+
+
+def smoother_for(time_kernel: Kernel, t_s, noise_s):
+    """The smoother ``(lgssm, cols) -> SmoothResult`` of a spliced series:
+    dense GP conditioning when it has N_all <= DENSE_N_MAX steps, else the
+    blocked smoother (``ssm/blocked.py``)."""
+    if t_s.shape[0] <= DENSE_N_MAX:
+        return _dense_smoother(time_kernel, t_s, noise_s)
+    from gpar_at_scale_torch.ssm.blocked import blocked_smooth
+
+    return blocked_smooth
+
+
+def splice(t, t_star, noise_var, dtype):
+    """Sort train and test times together; test points get the 1e10
+    observation noise of the reference's splice.  Returns (order, inverse
+    order, sorted times, sorted noise); the sort is stable, so a test time
+    equal to a training time lands after it, as in the JAX package."""
+    n, n_star = t.shape[0], t_star.shape[0]
+    t_all = torch.cat([t.to(dtype), t_star.to(dtype)])
+    noise_all = torch.cat([
+        torch.as_tensor(noise_var, dtype=dtype, device=t.device).expand(n),
+        torch.full((n_star,), 1e10, dtype=dtype, device=t.device),
+    ])
+    order = torch.argsort(t_all, stable=True)
+    inv_order = torch.argsort(order, stable=True)
+    return order, inv_order, t_all[order], noise_all[order]
+
+
+def _tri_inverse(L):
+    """L^-1 of a lower-triangular M x M factor, in float64."""
+    L = L.double()
+    return solve_lower(L, torch.eye(L.shape[0], dtype=L.dtype, device=L.device))
+
+
+class ScaledPrediction(NamedTuple):
+    mean: torch.Tensor  # (N*,)
+    var: torch.Tensor  # (N*,) latent-function variance (no obs noise)
+
+
+def predict_scaled(
+    out_kernel: Kernel,
+    time_kernel: Kernel,
+    qu: QU,
+    V,
+    t,
+    y,
+    t_star,
+    V_star,
+    noise_var,
+    mean=0.0,
+    *,
+    num_samples: int = 0,
+    dtype=torch.float64,
+) -> ScaledPrediction:
+    """Exact analytic posterior predictive of f* = f_x* + f_t* at
+    (t_star, V_star): splice the test times into the series with infinite
+    observation noise and smooth, using that the smoother is linear in its
+    observations:
+
+        E[f*]   = fx_bar + S (y - fx_bar)
+        Var[f*] = rowsum(((I - S) G)^2) + diag(P_smooth)
+
+    with fx_bar = K_*u L^-T m_eps and G = K_*u L^-T L_D^-T.  The q(u)
+    factors are cast to ``dtype``.  The Monte-Carlo variant of the JAX
+    package (``num_samples > 0``) is not in this slice."""
+    if num_samples > 0:
+        raise NotImplementedError("the Monte-Carlo predictive is not ported yet (ROADMAP)")
+    V, V_star = _as_2d(V).to(dtype), _as_2d(V_star).to(dtype)
+    t, t_star, y = t.to(dtype), t_star.to(dtype), y.to(dtype)
+    n = t.shape[0]
+    order, inv_order, t_s, noise_s = splice(t, t_star, noise_var, dtype)
+    V_s = torch.cat([V, V_star])[order]
+    y_s = torch.cat([y - mean, y.new_zeros(t_star.shape[0])])[order]
+
+    smooth_fn = smoother_for(time_kernel, t_s, noise_s)
+    lgssm = lgssm_of(time_kernel, t_s, noise_s, dtype)
+
+    # K_*u L_uu^-T and Phi L_D^-T as products with the inverse factors,
+    # inverted in float64 on the M x M side: a triangular solve with N_all
+    # right-hand sides takes seconds on the card at N_all = 1e6, a product
+    # with an M x M matrix milliseconds.
+    K_su = out_kernel(V_s, qu.Z.to(dtype))  # (N_all, M)
+    Phi = K_su @ _tri_inverse(qu.L_uu).to(dtype).T  # K_*u L_uu^-T
+    fx_bar = Phi @ qu.m_eps.to(dtype)
+    G = Phi @ _tri_inverse(qu.L_D).to(dtype).T  # Phi L_D^-T; Cov[f_x] = G G^T
+    sm = smooth_fn(lgssm, torch.cat([(y_s - fx_bar)[:, None], G], dim=1))
+    mean_all = fx_bar + sm.mean[:, 0]
+    H = G - sm.mean[:, 1:]  # (I - S) G
+    var_all = (H * H).sum(1) + sm.var
+    mean_star = (mean + mean_all)[inv_order][n:]
+    var_star = var_all[inv_order][n:]
+    return ScaledPrediction(mean=mean_star, var=torch.clamp(var_star, min=0.0))

@@ -1,0 +1,281 @@
+"""Blocked two-pass Kalman filter and RTS smoother as tensor code.
+
+Counterpart of ``gpar_at_scale_tpu/ssm/blocked.py``: split the N-step series
+into B contiguous blocks, reduce each block's filtering elements in lockstep
+(a Python loop over T = ceil(N / B) steps, each step batched over all B
+blocks), take an associative prefix over the B block totals, then replay
+each block from its known filtered init.  The smoother is the same schedule
+in reverse over the (E, g, L) smoothing elements.  It is the large-N
+smoother of ``predict_scaled`` and of the first output's predictive.
+
+On the card every loop iteration is a handful of small launches, so the
+block count is set for the GPU (``NUM_BLOCKS``): enough blocks that T stays
+short, few enough that the prefix over block totals (log2 B levels) stays
+cheap.  The CUDA scan kernels (``ops/kalman.py``) use the same block count,
+and the three phases of ``blocked_filter`` (``block_totals``,
+``block_inits``, ``replay_blocks``) are their plain versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpar_at_scale_torch.ssm.kalman import FilterResult, SmoothResult, _ensure_batch
+from gpar_at_scale_torch.ssm.markov import LGSSM
+from gpar_at_scale_torch.ssm.pkalman import _filter_elements
+
+_LOG_2PI = 1.8378770664093453
+
+# Largest block count: T = ceil(N / B) loop iterations against log2(B) prefix
+# levels.  At N = 1e6, 16384 blocks give T = 62.
+NUM_BLOCKS = 16384
+# Fewest steps a block gets when N is small, so short series still run the
+# blocked schedule instead of degenerating into the prefix alone.
+MIN_BLOCK_STEPS = 16
+
+
+def num_blocks_for(n: int, num_blocks=None) -> int:
+    """Block count for an n-step series: ``num_blocks`` if given, else
+    min(NUM_BLOCKS, n // MIN_BLOCK_STEPS); always in [1, n]."""
+    if num_blocks is None:
+        num_blocks = min(NUM_BLOCKS, n // MIN_BLOCK_STEPS)
+    return max(1, min(int(num_blocks), n))
+
+
+def _inv_small(Z):
+    """Batched inverse of (..., d, d) via the adjugate for d <= 3 (every Z
+    inverted here is I + (PSD)(PSD) or a predicted covariance)."""
+    d = Z.shape[-1]
+    if d == 1:
+        return 1.0 / Z
+    if d == 2:
+        a, b, c, e = Z[..., 0, 0], Z[..., 0, 1], Z[..., 1, 0], Z[..., 1, 1]
+        det = a * e - b * c
+        adj = torch.stack([torch.stack([e, -b], -1), torch.stack([-c, a], -1)], -2)
+        return adj / det[..., None, None]
+    if d == 3:
+        r0, r1, r2 = Z[..., 0, :], Z[..., 1, :], Z[..., 2, :]
+        c0 = torch.linalg.cross(r1, r2)
+        c1 = torch.linalg.cross(r2, r0)
+        c2 = torch.linalg.cross(r0, r1)
+        det = (r0 * c0).sum(-1)
+        return torch.stack([c0, c1, c2], -1) / det[..., None, None]
+    return torch.linalg.inv_ex(Z)[0]
+
+
+def _combine_fast(elem_i, elem_j):
+    """Filtering-element combine (i earlier, j later) with the adjugate
+    inverse: the algebra of ``pkalman._combine``."""
+    A_i, b_i, C_i, eta_i, J_i = elem_i
+    A_j, b_j, C_j, eta_j, J_j = elem_j
+    d = A_i.shape[-1]
+    I = torch.eye(d, dtype=A_i.dtype, device=A_i.device)
+    AjZ = A_j @ _inv_small(I + C_i @ J_j)
+    A_ij = AjZ @ A_i
+    b_ij = AjZ @ (b_i + C_i @ eta_j) + b_j
+    C_ij = AjZ @ C_i @ A_j.transpose(-1, -2) + C_j
+    AiTZ2 = A_i.transpose(-1, -2) @ _inv_small(I + J_j @ C_i)
+    eta_ij = AiTZ2 @ (eta_j - J_j @ b_i) + eta_i
+    J_ij = AiTZ2 @ J_j @ A_i + J_i
+    return A_ij, b_ij, C_ij, eta_ij, J_ij
+
+
+def _elem_identity(B, d, C, dtype, device):
+    """Identity of the filtering-element monoid, repeated over B blocks."""
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=device)  # noqa: E731
+    eye = torch.eye(d, dtype=dtype, device=device).expand(B, d, d)
+    return (eye, z(B, d, C), z(B, d, d), z(B, d, C), z(B, d, d))
+
+
+def _block(x, B, T):
+    """(B*T, ...) -> (T, B, ...): block b owns the contiguous steps
+    [b*T, (b+1)*T); index t walks every block's local step in lockstep."""
+    return x.reshape((B, T) + x.shape[1:]).transpose(0, 1)
+
+
+def _unblock(x, n):
+    """(T, B, ...) -> (B*T, ...)[:n]."""
+    T, B = x.shape[:2]
+    return x.transpose(0, 1).reshape((B * T,) + x.shape[2:])[:n]
+
+
+def _pad_block(x, B, T, fill):
+    """Pad (n, ...) to B*T rows equal to ``fill`` (broadcast to a row of x)
+    and block it to (T, B, ...)."""
+    pad = B * T - x.shape[0]
+    if pad:
+        rows = torch.as_tensor(fill, dtype=x.dtype, device=x.device).expand((pad,) + x.shape[1:])
+        x = torch.cat([x, rows], dim=0)
+    return _block(x, B, T)
+
+
+def _scan(fn, elems, reverse=False):
+    """Inclusive scan along axis 0 by recursive doubling (log2 n levels of
+    one batched ``fn`` each).  ``fn(prev, cur)`` combines the running value
+    of the earlier positions in scan order with the current one."""
+    if reverse:
+        elems = tuple(e.flip(0) for e in elems)
+    n = elems[0].shape[0]
+    off = 1
+    while off < n:
+        tail = fn(tuple(e[:-off] for e in elems), tuple(e[off:] for e in elems))
+        elems = tuple(torch.cat([e[:off], t], dim=0) for e, t in zip(elems, tail))
+        off *= 2
+    if reverse:
+        elems = tuple(e.flip(0) for e in elems)
+    return elems
+
+
+def block_totals(lgssm: LGSSM, Y, B, T):
+    """Phase 1: each block's filtering elements folded into one block
+    element (A, b, C, eta, J), b and eta (B, d, C).  Steps past N are the
+    identity element."""
+    d, C = lgssm.dim, Y.shape[1]
+    dtype, dev = lgssm.A.dtype, lgssm.A.device
+    ident = _elem_identity(1, d, C, dtype, dev)
+    elems = tuple(
+        _pad_block(e, B, T, i[0]) for e, i in zip(_filter_elements(lgssm, Y), ident)
+    )
+    totals = _elem_identity(B, d, C, dtype, dev)
+    for t in range(T):
+        totals = _combine_fast(totals, tuple(e[t] for e in elems))
+    return totals
+
+
+def block_inits(totals):
+    """Phase 2: exclusive prefix over the block totals -> the filtered
+    (m0 (B, d, C), P0 (B, d, d)) entering each block.  Block 0 starts from
+    the identity element (m0 = 0, P0 = 0): the prior enters through step 0's
+    A_0 = 0, Q_0 = Pinf."""
+    scanned = _scan(_combine_fast, totals)
+    m0 = torch.cat([torch.zeros_like(totals[1][:1]), scanned[1][:-1]])
+    P0 = torch.cat([torch.zeros_like(totals[2][:1]), scanned[2][:-1]])
+    return m0, P0
+
+
+def replay_blocks(lgssm: LGSSM, Y, m0, P0, B, T):
+    """Phase 3: replay each block from its filtered init with the plain
+    Kalman recursion (Joseph form).  Returns (m, P, mp, Pp, S, v) blocked as
+    (T, B, ...) and the (T, B) mask of real steps; padded steps leave the
+    state unchanged."""
+    n, d = lgssm.num_steps, lgssm.dim
+    dtype, dev = lgssm.A.dtype, lgssm.A.device
+    H = lgssm.H.to(dtype)
+    A_b = _pad_block(lgssm.A, B, T, 0.0)
+    Q_b = _pad_block(lgssm.Q, B, T, 0.0)
+    R_b = _pad_block(lgssm.R.expand(n), B, T, 1.0)
+    Y_b = _pad_block(Y.to(dtype), B, T, 0.0)
+    live = _pad_block(torch.ones(n, dtype=torch.bool, device=dev), B, T, False)
+    I = torch.eye(d, dtype=dtype, device=dev)
+    m_c, P_c = m0, P0
+    C = Y.shape[1]
+    outs = dict(
+        m=Y.new_empty((T, B, d, C)), P=Y.new_empty((T, B, d, d)),
+        mp=Y.new_empty((T, B, d, C)), Pp=Y.new_empty((T, B, d, d)),
+        S=Y.new_empty((T, B)), v=Y.new_empty((T, B, C)),
+    )
+    for t in range(T):
+        A_t, R_t = A_b[t], R_b[t]
+        mp = A_t @ m_c
+        Pp = A_t @ P_c @ A_t.transpose(-1, -2) + Q_b[t]
+        S = torch.einsum("i,bij,j->b", H, Pp, H) + R_t
+        v = Y_b[t] - torch.einsum("i,bic->bc", H, mp)
+        K = torch.einsum("bij,j->bi", Pp, H) / S[:, None]
+        m_new = mp + K[:, :, None] * v[:, None, :]
+        ImKH = I - K[:, :, None] * H[None, None, :]
+        P_new = ImKH @ Pp @ ImKH.transpose(-1, -2) + R_t[:, None, None] * (
+            K[:, :, None] * K[:, None, :]
+        )  # Joseph form
+        for name, val in zip(("m", "P", "mp", "Pp", "S", "v"), (m_new, P_new, mp, Pp, S, v)):
+            outs[name][t] = val
+        mk = live[t][:, None, None]
+        m_c = torch.where(mk, m_new, m_c)
+        P_c = torch.where(mk, P_new, P_c)
+    return outs, live
+
+
+def blocked_filter(lgssm: LGSSM, y, num_blocks=None) -> FilterResult:
+    """Forward filter with batched observation columns: ``FilterResult``
+    parity with ``kalman_filter`` at ceil(N / B) sequential depth."""
+    Y, _ = _ensure_batch(y)
+    n = lgssm.num_steps
+    B = num_blocks_for(n, num_blocks)
+    T = -(-n // B)
+    m0, P0 = block_inits(block_totals(lgssm, Y, B, T))
+    outs, _ = replay_blocks(lgssm, Y, m0, P0, B, T)
+    o = {k: _unblock(v, n) for k, v in outs.items()}
+    ll = -0.5 * (_LOG_2PI + torch.log(o["S"])[:, None] + o["v"] ** 2 / o["S"][:, None]).sum(0)
+    return FilterResult(m=o["m"], P=o["P"], mp=o["mp"], Pp=o["Pp"], S=o["S"], v=o["v"], ll=ll)
+
+
+def _smoother_elements_fast(lgssm: LGSSM, res: FilterResult):
+    """(E, g, L) smoothing elements with the adjugate inverse:
+    E_k = P_k A_{k+1}^T Pp_{k+1}^-1, g_k = m_k - E_k mp_{k+1},
+    L_k = P_k - E_k Pp_{k+1} E_k^T; the last element is (0, m_N, P_N)."""
+    A, m, P, mp, Pp = lgssm.A, res.m, res.P, res.mp, res.Pp
+    d = A.shape[-1]
+    E = P[:-1] @ A[1:].transpose(-1, -2) @ _inv_small(Pp[1:])
+    g = m[:-1] - E @ mp[1:]
+    L = P[:-1] - E @ Pp[1:] @ E.transpose(-1, -2)
+    return (
+        torch.cat([E, E.new_zeros((1, d, d))]),
+        torch.cat([g, m[-1:]]),
+        torch.cat([L, P[-1:]]),
+    )
+
+
+def _combine_smooth(later, earlier):
+    """(earlier o later): (E_e E_l, E_e g_l + g_e, E_e L_l E_e^T + L_e)."""
+    E_l, g_l, L_l = later
+    E_e, g_e, L_e = earlier
+    return E_e @ E_l, E_e @ g_l + g_e, E_e @ L_l @ E_e.transpose(-1, -2) + L_e
+
+
+def _smooth_identity(B, d, C, dtype, device):
+    eye = torch.eye(d, dtype=dtype, device=device).expand(B, d, d)
+    zeros = lambda *s: torch.zeros(s, dtype=dtype, device=device)  # noqa: E731
+    return (eye, zeros(B, d, C), zeros(B, d, d))
+
+
+def blocked_suffix_scan(E, g, L, num_blocks=None):
+    """Inclusive suffix combine out_k = elem_k o elem_{k+1} o ... o elem_{n-1}
+    of smoothing-algebra elements, blocked: within-block reverse reduction
+    (ceil(N / B) sequential depth), reverse exclusive prefix over block
+    totals, then one elementwise combine.  E (n, d, d), g (n, d, C),
+    L (n, d, d)."""
+    n, d, C = E.shape[0], E.shape[-1], g.shape[-1]
+    dtype, dev = E.dtype, E.device
+    B = num_blocks_for(n, num_blocks)
+    T = -(-n // B)
+
+    ident = _smooth_identity(1, d, C, dtype, dev)
+    elems = tuple(_pad_block(e, B, T, i[0]) for e, i in zip((E, g, L), ident))
+
+    suffix = tuple(x.new_empty((T,) + x.shape[1:]) for x in elems)
+    carry = _smooth_identity(B, d, C, dtype, dev)
+    for t in range(T - 1, -1, -1):
+        carry = _combine_smooth(carry, tuple(e[t] for e in elems))
+        for s, c in zip(suffix, carry):
+            s[t] = c
+
+    scanned = _scan(_combine_smooth, carry, reverse=True)
+    later = tuple(torch.cat([s[1:], i]) for s, i in zip(scanned, ident))
+    out = _combine_smooth(later, suffix)  # later (B, ...) broadcasts over T
+    return tuple(_unblock(x, n) for x in out)
+
+
+def blocked_smooth(
+    lgssm: LGSSM, y, filter_result: FilterResult = None, num_blocks=None
+) -> SmoothResult:
+    """RTS smoother as a blocked reverse scan: ``SmoothResult`` parity with
+    ``rts_smooth``.  The smoothed moments are the combined suffix elements,
+    so no replay pass is needed."""
+    Y, single = _ensure_batch(y)
+    res = filter_result if filter_result is not None else blocked_filter(lgssm, Y, num_blocks)
+    _, ms, Ps = blocked_suffix_scan(*_smoother_elements_fast(lgssm, res), num_blocks=num_blocks)
+    H = lgssm.H.to(lgssm.A.dtype)
+    f_mean = torch.einsum("d,ndb->nb", H, ms)
+    f_var = torch.einsum("d,nde,e->n", H, Ps, H)
+    if single:
+        f_mean = f_mean[:, 0]
+    return SmoothResult(mean=f_mean, var=torch.clamp(f_var, min=0.0), ll=res.ll, ms=ms, Ps=Ps)

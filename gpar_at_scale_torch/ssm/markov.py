@@ -1,0 +1,207 @@
+"""Markovian (state-space) forms of Matern-family kernels.
+
+Counterpart of ``gpar_at_scale_tpu/ssm/markov.py``.  A Matern-(2p+1)/2 GP on
+1-D time is the first component of a d = p+1 dimensional LTI SDE
+dx = F x dt + L dW, discretized over sorted times into the LGSSM
+
+    x_k = A_k x_{k-1} + q_k,  q_k ~ N(0, Q_k),   x_0 ~ N(0, Pinf)
+    y_k = H x_k + e_k,        e_k ~ N(0, R_k)
+
+with A_k = expm(F dt_k) and Q_k = Pinf - A_k Pinf A_k^T.  A single Matern
+block's F has characteristic polynomial (s + lam)^d, so N = F + lam I is
+nilpotent and expm(F dt) = exp(-lam dt) (I + N dt + N^2 dt^2 / 2) in closed
+form.  Sums of Markovian kernels are block-diagonal states.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from gpar_at_scale_torch.kernels.base import Kernel, ScaledKernel, Sum
+from gpar_at_scale_torch.kernels.stationary import Matern12, Matern32, Matern52
+
+_SQRT3 = 1.7320508075688772
+_SQRT5 = 2.23606797749979
+
+
+@dataclass(frozen=True)
+class SDEBlock:
+    """One single-family LTI SDE block with eigenvalue -lam (multiplicity d)."""
+
+    F: torch.Tensor  # (d, d)
+    Pinf: torch.Tensor  # (d, d)
+    H: torch.Tensor  # (d,)
+    lam: torch.Tensor  # scalar > 0
+
+    @property
+    def dim(self) -> int:
+        return self.F.shape[-1]
+
+
+@dataclass(frozen=True)
+class SDE:
+    """A Markovian prior as a tuple of blocks (sum kernel = block-diagonal
+    state; emission rows concatenate)."""
+
+    blocks: Tuple[SDEBlock, ...]
+
+    @property
+    def dim(self) -> int:
+        return sum(b.dim for b in self.blocks)
+
+
+@dataclass(frozen=True)
+class LGSSM:
+    """Discrete linear-Gaussian SSM over a time grid.
+
+    A: (N, d, d) transitions (A_0 = 0: x_0 is drawn from N(0, Q_0)).
+    Q: (N, d, d) process noise (Q_0 = Pinf).
+    H: (d,) emission row.
+    R: (N,) per-point observation noise variance (the 1e10 test-point splice
+       of the predictive needs it per point).
+    """
+
+    A: torch.Tensor
+    Q: torch.Tensor
+    H: torch.Tensor
+    R: torch.Tensor
+
+    @property
+    def num_steps(self) -> int:
+        return self.A.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.A.shape[-1]
+
+
+def _matern_block(d: int, l, s):
+    """(F, Pinf, H, lam) of the Matern block with state dim d."""
+    z = torch.zeros_like(l)
+    o = torch.ones_like(l)
+    if d == 1:
+        lam = 1.0 / l
+        F = (-lam).reshape(1, 1)
+        Pinf = s.reshape(1, 1)
+    elif d == 2:
+        lam = _SQRT3 / l
+        F = torch.stack([torch.stack([z, o]), torch.stack([-(lam**2), -2.0 * lam])])
+        Pinf = torch.diag(torch.stack([s * o, s * lam**2]))
+    else:
+        lam = _SQRT5 / l
+        F = torch.stack(
+            [
+                torch.stack([z, o, z]),
+                torch.stack([z, z, o]),
+                torch.stack([-(lam**3), -3.0 * lam**2, -3.0 * lam]),
+            ]
+        )
+        kappa = s * lam**2 / 3.0
+        Pinf = torch.stack(
+            [
+                torch.stack([s * o, z, -kappa]),
+                torch.stack([z, kappa, z]),
+                torch.stack([-kappa, z, lam**4 * s]),
+            ]
+        )
+    H = torch.zeros(d, dtype=l.dtype, device=l.device)
+    H[0] = 1.0
+    return SDEBlock(F=F, Pinf=Pinf, H=H, lam=lam)
+
+
+_ORDER = {Matern12: 1, Matern32: 2, Matern52: 3}
+
+
+def to_sde(kernel: Kernel, dtype=torch.float64, device=None) -> SDE:
+    """Convert a Markovian kernel (Matern12/32/52, scalings and sums of them)
+    to its LTI SDE.  Raises TypeError for non-Markovian kernels (EQ, RQ)."""
+    return SDE(blocks=tuple(_blocks_of(kernel, dtype, device, 1.0)))
+
+
+def _blocks_of(kernel, dtype, device, outer_scale):
+    as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)  # noqa: E731
+    if type(kernel) in _ORDER:
+        return [
+            _matern_block(
+                _ORDER[type(kernel)],
+                as_t(kernel.lengthscale),
+                outer_scale * as_t(kernel.variance),
+            )
+        ]
+    if isinstance(kernel, ScaledKernel):
+        return _blocks_of(kernel.base, dtype, device, outer_scale * as_t(kernel.variance))
+    if isinstance(kernel, Sum):
+        return _blocks_of(kernel.left, dtype, device, outer_scale) + _blocks_of(
+            kernel.right, dtype, device, outer_scale
+        )
+    raise TypeError(
+        f"kernel {type(kernel).__name__} has no exact finite-dimensional SDE "
+        "(only Matern 1/2, 3/2, 5/2 and scalings/sums thereof are Markovian)"
+    )
+
+
+def _expm_block(block: SDEBlock, dt):
+    """Closed-form expm(F dt) for a vector of gaps dt (n,) -> (n, d, d),
+    via the nilpotent split F = -lam I + N."""
+    d = block.dim
+    I = torch.eye(d, dtype=block.F.dtype, device=block.F.device)
+    N = block.F + block.lam * I
+    dt3 = dt[:, None, None]
+    out = I + N * dt3
+    if d >= 3:
+        out = out + (N @ N) * (dt3 * dt3 * 0.5)
+    return torch.exp(-block.lam * dt3) * out
+
+
+def _block_diag_batched(mats):
+    """Block-diagonal assembly of a list of (n, d_i, d_i) stacks."""
+    n = mats[0].shape[0]
+    D = sum(m.shape[-1] for m in mats)
+    out = mats[0].new_zeros((n, D, D))
+    o = 0
+    for m in mats:
+        k = m.shape[-1]
+        out[:, o : o + k, o : o + k] = m
+        o += k
+    return out
+
+
+def discretize(sde: SDE, t, noise_var) -> LGSSM:
+    """Index the SDE at sorted times t (N,) with observation noise (scalar or
+    per-point (N,)).  Raises ValueError on an unsorted grid: negative gaps
+    would give an indefinite Q and NaNs downstream."""
+    F0 = sde.blocks[0].F
+    t = torch.as_tensor(t, dtype=F0.dtype, device=F0.device)
+    n = t.shape[0]
+    dts = torch.diff(t)
+    if bool((dts < 0).any()):
+        raise ValueError(
+            "discretize: time grid must be sorted ascending (got negative time gaps)"
+        )
+
+    A_blocks = [_expm_block(b, dts) for b in sde.blocks]
+    if len(sde.blocks) == 1:
+        A_steps, Pinf, H = A_blocks[0], sde.blocks[0].Pinf, sde.blocks[0].H
+    else:
+        A_steps = _block_diag_batched(A_blocks)
+        Pinf = torch.block_diag(*[b.Pinf for b in sde.blocks])
+        H = torch.cat([b.H for b in sde.blocks])
+
+    Q_steps = Pinf[None] - A_steps @ Pinf @ A_steps.transpose(-1, -2)
+    d = sde.dim
+    A = torch.cat([A_steps.new_zeros((1, d, d)), A_steps], dim=0)
+    Q = torch.cat([Pinf[None], Q_steps], dim=0)
+    Q = 0.5 * (Q + Q.transpose(-1, -2))  # symmetrize against rounding
+    R = torch.as_tensor(noise_var, dtype=t.dtype, device=t.device).expand(n).contiguous()
+    return LGSSM(A=A, Q=Q, H=H, R=R)
+
+
+def lgssm_of(kernel: Kernel, t, noise_var, dtype=None) -> LGSSM:
+    """``to_sde`` + ``discretize`` (the reference's ``create_lgssm``).
+    ``dtype`` defaults to t's; the device is t's."""
+    t = torch.as_tensor(t)
+    dtype = t.dtype if dtype is None else dtype
+    return discretize(to_sde(kernel, dtype, t.device), t.to(dtype), noise_var)
