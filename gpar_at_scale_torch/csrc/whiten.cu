@@ -13,6 +13,11 @@
 //     m_k = M_k m_{k-1} + K_k y_k          (kept where mask_k > 0.5)
 //     ll += -1/2 mask_k (log 2 pi + log S_k + alpha_k^2)
 //
+// Given a non-NULL m_out it also writes every column's filtered mean m_k
+// (n, d, B), which the whitened-Gram gradient needs (ops/grad.py); only the
+// training path asks for it.  Warp 0 stores it straight from registers: for
+// one step and state component the 32 lanes write 32 neighbouring floats.
+//
 // One thread of the first warp runs one column through all n steps; a CUDA
 // block owns kCols = 32 columns.  Time goes in chunks of kChunk rows, double
 // buffered in shared memory: while warp 0 runs chunk c from shared memory,
@@ -25,7 +30,8 @@
 // runs two blocks, a sequential chain of n dependent steps per thread -- it
 // is latency-bound, far from the (18 + 2 B) * 4 bytes per step the card
 // could stream.  Splitting time into blocks as K1/K2 do, with the columns
-// inside each block, is the fix and later performance work.
+// inside each block, is the fix and later performance work.  The means add
+// 4 d B bytes per step of stores, which do not wait on the chain.
 //
 // Plain C interface (built with nvcc, loaded with ctypes): the entry
 // returns cudaGetLastError() after the launch.
@@ -93,7 +99,7 @@ __device__ __forceinline__ void drain_chunk(const float* __restrict__ sa,
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 whiten_kernel(const float* __restrict__ gains, const float* __restrict__ Y, long long n, int B,
-              float* __restrict__ alpha, float* __restrict__ ll) {
+              float* __restrict__ alpha, float* __restrict__ ll, float* __restrict__ m_out) {
   constexpr int G = 3 + 2 * D + D * D;
   __shared__ float sg[2][kChunk * G];
   __shared__ float sy[2][kChunk * kCols];
@@ -150,6 +156,11 @@ whiten_kernel(const float* __restrict__ gains, const float* __restrict__ Y, long
 #pragma unroll
           for (int i = 0; i < D; ++i) m[i] = m_new[i];
         }
+        if (m_out != nullptr) {
+          const long long k = c * kChunk + t;
+#pragma unroll
+          for (int i = 0; i < D; ++i) m_out[(k * D + i) * B + col0 + lane] = m[i];
+        }
         part -= 0.5f * mask * (kLog2Pi + logS + a * a);
         sa[buf][t * kCols + lane] = a;
       }
@@ -165,7 +176,7 @@ whiten_kernel(const float* __restrict__ gains, const float* __restrict__ Y, long
 }  // namespace
 
 extern "C" int whiten_columns(int d, const void* gains, const void* Y, long long n, int B,
-                              void* alpha, void* ll, void* stream) {
+                              void* alpha, void* ll, void* m_out, void* stream) {
   if (n < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((B + kCols - 1) / kCols);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -173,7 +184,8 @@ extern "C" int whiten_columns(int d, const void* gains, const void* Y, long long
   whiten_kernel<DD><<<grid, kThreads, 0, s>>>(static_cast<const float*>(gains),           \
                                               static_cast<const float*>(Y), n, B,         \
                                               static_cast<float*>(alpha),                 \
-                                              static_cast<float*>(ll))
+                                              static_cast<float*>(ll),                    \
+                                              static_cast<float*>(m_out))
   switch (d) {
     case 1: GPAR_W(1); break;
     case 2: GPAR_W(2); break;

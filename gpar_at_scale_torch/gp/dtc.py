@@ -13,25 +13,32 @@ With L = chol(K_uu) and W any square root of Sigma_y^-1,
 and q(eps) = N(m_eps, D^-1) with D = A A^T + I, m_eps = D^-1 A alpha; the
 predictive loads f_x = K_*u L^-T eps.
 
-Whitening engines (``filter_fn``):
+Whitening engines (``filter_fn``), each differentiable in the
+hyperparameters:
 
 * ``"dense"`` -- chol(Sigma_y) and one triangular solve with M+1
-  right-hand sides, for N <= ``DENSE_N_MAX``.
-* ``"pallas"`` -- the CUDA blocked-scan kernels K1/K2/K3
-  (``ops/whiten.py``); the name is the JAX package's, so one configuration
-  drives both.  The whitened Gram is formed in float64 and the M x M algebra
-  after it runs in float64 (a float32 Gram at N = 1e6 can make G_b + K_uu
-  indefinite), so this branch returns float64 intermediates.
+  right-hand sides, for N <= ``DENSE_N_MAX``; autograd.
+* ``"pallas"`` -- the CUDA blocked-scan kernels K1/K2/K3 forward and the
+  suffix-scan kernels K4a/K4b backward (``ops/whiten.py::whiten_gram``,
+  ``ops/grad.py``); the name is the JAX package's, so one configuration
+  drives both.
+* ``"blocked"`` -- the same closed-form gradient over the tensor-code
+  blocked filter (``ssm/blocked_grad.py``), for any state dim and emission
+  row, in the working precision.
 * a callable ``(lgssm, Y) -> FilterResult`` -- e.g. the sequential
-  ``ssm.kalman.kalman_filter``.
+  ``ssm.kalman.kalman_filter``; autograd.
 * ``None`` -- auto: ``"dense"`` when (time_kernel, t) are given and
-  N <= DENSE_N_MAX, the kernel path above that.  The JAX package sends
-  large N to its XLA ``"blocked"`` engine, whose custom gradient is training
-  work; without training the kernel path is the forward engine here.
+  N <= DENSE_N_MAX, the kernel path above that.  The JAX package picks its
+  XLA ``"blocked"`` engine there because its TPU compile service stalled on
+  the kernel path; here ``"blocked"`` is tensor code, bound by launches.
 
-This slice has no gradients, no Monte-Carlo predictive and no iid-noise
-variants (``dtc_objective_iid``, ``titsias_elbo``, ``predict_sparse_iid``);
-see ROADMAP.
+The two scan engines form the whitened Gram in float64 and run the M x M
+algebra after it in float64 (a float32 Gram at N = 1e6 can make G_b + K_uu
+indefinite), so they return float64 intermediates.
+
+Not in the port yet: the Monte-Carlo predictive and the iid-noise variants
+(``dtc_objective_iid``, ``titsias_elbo``, ``predict_sparse_iid``); see
+ROADMAP.
 """
 
 from __future__ import annotations
@@ -113,8 +120,11 @@ def _whiten_all(
     if filter_fn is None and time_kernel is not None:
         filter_fn = "dense" if n <= DENSE_N_MAX else "pallas"
 
-    if filter_fn == "pallas":
-        from gpar_at_scale_torch.ops.whiten import whiten_gram
+    if filter_fn in ("pallas", "blocked"):
+        if filter_fn == "pallas":
+            from gpar_at_scale_torch.ops.whiten import whiten_gram
+        else:
+            from gpar_at_scale_torch.ssm.blocked_grad import whiten_gram
 
         G, logdet_noise = whiten_gram(lgssm, batch)
         # float64 factor with the working precision's relative jitter, as
@@ -158,7 +168,7 @@ def dtc_objective(
     time_kernel=None,
     t=None,
 ):
-    """The DTC evidence bound, value only, in the P-form of the JAX package:
+    """The DTC evidence bound in the P-form of the JAX package:
     with P = Gb + K_uu, log det Lam = log det P - log det K_uu and
     |chol(Lam)^-1 L_uu^-1 g|^2 = g^T P^-1 g."""
     inter = _whiten_all(

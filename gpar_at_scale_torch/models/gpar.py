@@ -5,10 +5,13 @@ GP on time; every later output i is a scaled conditional: DTC pseudo-points
 over the previous outputs with the temporal LGSSM as structured noise
 (``gp/dtc.py``).  Prediction feeds the predicted means down the chain.
 
-This slice serves: ``fit_*`` condition the chain on the hyperparameters
-they are given (``max_opt_steps`` must be 0) and compute q(u); ``predict``
-answers requests.  Training (``max_opt_steps > 0``), the parallel fit of the
-conditionals and the exact backend come with later slices (ROADMAP).
+``fit_*`` train the log-hyperparameters by type-II maximum likelihood
+(``inference/optimize.py``: L-BFGS or Adam on the exact gradient, through
+the closed-form disturbance-smoother VJPs on the kernel path) and then
+condition: output 1 keeps its data, each conditional computes q(u) at the
+optimum.  With ``max_opt_steps = 0`` they condition on the parameters they
+are given and evaluate no objective.  The parallel fit of the conditionals
+and the exact backend come with later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -19,27 +22,40 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 
 from gpar_at_scale_torch.device import resolve_device
-from gpar_at_scale_torch.gp.dtc import QU, compute_q_u, predict_scaled, smoother_for, splice
+from gpar_at_scale_torch.gp.dtc import (
+    DENSE_N_MAX,
+    QU,
+    compute_q_u,
+    dtc_objective,
+    predict_scaled,
+    smoother_for,
+    splice,
+)
+from gpar_at_scale_torch.inference.optimize import OptResult, minimize_adam, minimize_lbfgs
 from gpar_at_scale_torch.kernels import Matern52, time_kernel_only
 from gpar_at_scale_torch.ssm.kalman import kalman_filter
+from gpar_at_scale_torch.ssm.kalman import logpdf as ssm_logpdf
 from gpar_at_scale_torch.ssm.markov import lgssm_of
 from gpar_at_scale_torch.utils.params import init_params, unpack_gp, unpack_gpar, unpack_gpar6
-
-_TRAINING = "hyperparameter training is the next slice of the port (ROADMAP); pass max_opt_steps=0"
 
 
 @dataclass(frozen=True)
 class GPARConfig:
-    """Per-model configuration, the JAX package's fields (its ``optimizer``
-    comes with training).
+    """Per-model configuration, the JAX package's fields.
 
-    filter_impl: whitening engine of the scaled conditionals --
-      'auto'       dense chol(Sigma_y) when N <= gp.dtc.DENSE_N_MAX, the
-                   CUDA blocked-scan kernels above;
-      'dense'      the dense backend;
+    filter_impl: whitening engine of the scaled conditionals and filter of
+    output 1's likelihood --
+      'auto'       conditionals: dense chol(Sigma_y) when N <= gp.dtc.
+                   DENSE_N_MAX, the CUDA kernels above; output 1: the
+                   sequential filter when N <= DENSE_N_MAX, the kernels
+                   above;
+      'dense'      conditionals: the dense backend; output 1: sequential;
       'sequential' the sequential Kalman filter (numerical oracle);
-      'pallas'     the CUDA blocked-scan kernels K1-K3 (the JAX package's
-                   name for its TPU kernels).
+      'blocked'    the tensor-code blocked filter with the closed-form
+                   gradient (ssm/blocked_grad.py), any state dim;
+      'pallas'     the CUDA blocked-scan kernels K1-K3 forward and K4a/K4b
+                   backward (the JAX package's name for its TPU kernels).
+    optimizer: 'lbfgs' | 'adam'.
     """
 
     time_family: Any = Matern52
@@ -48,14 +64,26 @@ class GPARConfig:
     first_output_backend: str = "temporal"  # 'exact' | 'temporal'
     num_pseudo_points: int = 50
     max_opt_steps: int = 200
+    optimizer: str = "lbfgs"  # 'lbfgs' | 'adam'
     dtype: Any = torch.float64
     filter_impl: str = "auto"
     separate_noise: bool = False
 
 
-def _check_serving(cfg: GPARConfig) -> None:
-    if cfg.max_opt_steps != 0:
-        raise NotImplementedError(_TRAINING)
+def _minimize(cfg: GPARConfig, fun, x0) -> OptResult:
+    if cfg.optimizer == "adam":
+        return minimize_adam(fun, x0, max_steps=cfg.max_opt_steps)
+    return minimize_lbfgs(fun, x0, max_steps=cfg.max_opt_steps)
+
+
+def _train(cfg: GPARConfig, nll, x0):
+    """(params, OptResult or None): no objective is evaluated when
+    ``max_opt_steps`` is 0 (the JAX package's L-BFGS evaluates one gradient
+    at x0 even then)."""
+    if cfg.max_opt_steps == 0:
+        return x0, None
+    res = _minimize(cfg, nll, x0)
+    return res.params, res
 
 
 def _unpack_cond(cfg: GPARConfig, p):
@@ -69,7 +97,10 @@ def _unpack_cond(cfg: GPARConfig, p):
 
 def _filter_fn_of(cfg: GPARConfig):
     """GPARConfig.filter_impl -> gp.dtc's filter_fn argument."""
-    table = {"auto": None, "dense": "dense", "sequential": kalman_filter, "pallas": "pallas"}
+    table = {
+        "auto": None, "dense": "dense", "sequential": kalman_filter,
+        "blocked": "blocked", "pallas": "pallas",
+    }
     if cfg.filter_impl not in table:
         raise NotImplementedError(
             f"filter_impl={cfg.filter_impl!r} is not ported yet (ROADMAP P8)"
@@ -104,6 +135,7 @@ class FittedGP:
     t: torch.Tensor
     y: torch.Tensor
     backend: str
+    opt: Optional[OptResult] = None  # the optimizer's result, if it ran
 
     def hyperparams(self) -> Tuple:
         return tuple(float(v) for v in unpack_gp(self.params))
@@ -128,18 +160,51 @@ def _temporal_predict(kernel, t, y, t_star, noise_var, dtype):
     return sm.mean[:, 0][inv][n:], sm.var[inv][n:]
 
 
+def _first_output_nll(cfg: GPARConfig, t, y):
+    """Output 1's negative log-likelihood in its log-parameters.  'auto'
+    takes the sequential filter only up to DENSE_N_MAX steps, where the JAX
+    package takes it at every N: the port's sequential filter is a Python
+    loop of N steps, so longer series go through the kernels."""
+    impl = cfg.filter_impl
+    if impl == "auto":
+        impl = "sequential" if t.shape[0] <= DENSE_N_MAX else "pallas"
+    if impl == "pallas":
+        from gpar_at_scale_torch.ops.grad import logpdf_markov_pallas
+
+        def ll(k, nv):
+            return logpdf_markov_pallas(k, t, nv, y)
+    elif impl == "blocked":
+        from gpar_at_scale_torch.ssm.blocked_grad import blocked_loglik
+
+        def ll(k, nv):
+            return blocked_loglik(lgssm_of(k, t, nv, cfg.dtype), y)
+    elif impl in ("sequential", "dense"):
+
+        def ll(k, nv):
+            return ssm_logpdf(lgssm_of(k, t, nv, cfg.dtype), y)
+    else:
+        raise NotImplementedError(f"filter_impl={impl!r} is not ported yet (ROADMAP P8)")
+
+    def nll(p):
+        l, ps, ns = unpack_gp(p)
+        return -ll(time_kernel_only(cfg.time_family, l, ps), ns**2)
+
+    return nll
+
+
 def fit_first_output(generator, t, y, cfg: GPARConfig, init_params=None, *, device=None) -> FittedGP:
-    """Condition the temporal GP of output 1 on its hyperparameters.  Only
-    the temporal backend is ported; there is nothing to precompute, so the
-    fit stores the data sorted by time."""
-    _check_serving(cfg)
+    """Type-II ML for the temporal GP of output 1 (its likelihood by the
+    Kalman filter, O(N)); only the temporal backend is ported.  The fit
+    stores the data sorted by time."""
     if cfg.first_output_backend != "temporal":
         raise NotImplementedError("the exact backend (gp/exact.py) is not ported yet (ROADMAP)")
     device = resolve_device(device)
     t, y = _as(t, cfg, device), _as(y, cfg, device)
     order = torch.argsort(t, stable=True)
+    t_s, y_s = t[order], y[order]
     x0 = _params(init_params, 3, generator, cfg, device)
-    return FittedGP(params=x0, cfg=cfg, t=t[order], y=y[order], backend="temporal")
+    params, res = _train(cfg, _first_output_nll(cfg, t_s, y_s), x0)
+    return FittedGP(params=params, cfg=cfg, t=t_s, y=y_s, backend="temporal", opt=res)
 
 
 @dataclass
@@ -154,6 +219,7 @@ class FittedConditional:
     backend: str
     Z: Optional[torch.Tensor] = None  # (M, i-1) inducing inputs
     qu: Optional[QU] = None
+    opt: Optional[OptResult] = None  # the optimizer's result, if it ran
 
     def hyperparams(self) -> Tuple:
         unpack = unpack_gpar6 if self.cfg.separate_noise else unpack_gpar
@@ -187,33 +253,52 @@ def _select_pseudo_points(X, m: int):
     return X[idx.to(X.device)]
 
 
+def _conditional_bound(cfg: GPARConfig, t_s, X_s, y_s, Z):
+    """``at(fn, p)``: the DTC quantity ``fn`` (``dtc_objective`` or
+    ``compute_q_u``) of the time-sorted data at log-parameters p, through the
+    configured whitening engine."""
+    f_impl = _filter_fn_of(cfg)
+
+    def at(fn, p):
+        tl, ts, ol, osig, ns, tns = _unpack_cond(cfg, p)
+        time_k = time_kernel_only(cfg.time_family, tl, ts)
+        out_k = cfg.out_family(lengthscale=ol, variance=osig**2)
+        lgssm = lgssm_of(time_k, t_s, tns**2, cfg.dtype)
+        # uu_ridge = s2: the output noise keeps chol(K_uu) stable as K_uu
+        # approaches rank one; with separate_noise the LGSSM carries the
+        # temporal noise tns and the ridge the output noise ns.
+        return fn(
+            out_k, lgssm, X_s, Z, y_s, uu_ridge=ns**2, filter_fn=f_impl,
+            time_kernel=time_k, t=t_s,
+        )
+
+    return at
+
+
 def fit_conditional(
     generator, t, X_prev, y, cfg: GPARConfig, init_params=None, *, device=None
 ) -> FittedConditional:
-    """Condition one scaled conditional on its hyperparameters: sort by time,
-    pick the pseudo-points and compute q(u) through the configured
-    whitening engine."""
-    _check_serving(cfg)
+    """Type-II ML for one scaled conditional: sort by time, pick the
+    pseudo-points, maximize the DTC bound through the configured whitening
+    engine (Z fixed, as in the JAX package), then compute q(u) at the
+    optimum."""
     if cfg.backend != "scaled":
         raise NotImplementedError("the exact backend (gp/exact.py) is not ported yet (ROADMAP)")
     device = resolve_device(device)
     t, X_prev, y = _as(t, cfg, device), _as(X_prev, cfg, device), _as(y, cfg, device)
     if X_prev.ndim == 1:
         X_prev = X_prev[:, None]
-    p = _params(init_params, 6 if cfg.separate_noise else 5, generator, cfg, device)
+    x0 = _params(init_params, 6 if cfg.separate_noise else 5, generator, cfg, device)
     order = torch.argsort(t, stable=True)
     t_s, X_s, y_s = t[order], X_prev[order], y[order]
     Z = _select_pseudo_points(X_s, cfg.num_pseudo_points)
-    tl, ts, ol, osig, ns, tns = _unpack_cond(cfg, p)
-    time_k = time_kernel_only(cfg.time_family, tl, ts)
-    out_k = cfg.out_family(lengthscale=ol, variance=osig**2)
-    lgssm = lgssm_of(time_k, t_s, tns**2, cfg.dtype)
-    qu = compute_q_u(
-        out_k, lgssm, X_s, Z, y_s, uu_ridge=ns**2, filter_fn=_filter_fn_of(cfg),
-        time_kernel=time_k, t=t_s,
-    )
+    at = _conditional_bound(cfg, t_s, X_s, y_s, Z)
+    params, res = _train(cfg, lambda p: -at(dtc_objective, p), x0)
+    with torch.no_grad():
+        qu = at(compute_q_u, params)
     return FittedConditional(
-        params=p, cfg=cfg, t=t_s, X_prev=X_s, y=y_s, backend="scaled", Z=Z, qu=qu
+        params=params, cfg=cfg, t=t_s, X_prev=X_s, y=y_s, backend="scaled", Z=Z, qu=qu,
+        opt=res,
     )
 
 
@@ -259,13 +344,15 @@ def fit_gpar(
     parallel: bool = False,
     device=None,
 ) -> FittedGPAR:
-    """Condition the whole chain: output 1 on time, output i on
-    (t, y_1..y_{i-1}).  ``generator`` (a ``torch.Generator`` or None) draws
-    the U(0, 1) log-parameters of outputs whose ``init_params`` entry is
-    None.  Runs on the card unless ``device`` says otherwise."""
-    _check_serving(cfg)
+    """Fit the whole chain: output 1 on time, output i on
+    (t, y_1..y_{i-1}), one after the other.  ``generator`` (a
+    ``torch.Generator`` or None) draws the U(0, 1) log-parameters of outputs
+    whose ``init_params`` entry is None.  Runs on the card unless ``device``
+    says otherwise."""
     if parallel:
-        raise NotImplementedError("parallel=True fits belong to the training slice (ROADMAP)")
+        raise NotImplementedError(
+            "parallel=True (fit_conditionals_parallel) is not ported yet (ROADMAP)"
+        )
     device = resolve_device(device)
     Y = _as(Y, cfg, device)
     P = Y.shape[1]

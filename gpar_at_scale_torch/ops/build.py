@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("kalman_scan", "whiten")
+SOURCES = ("kalman_scan", "whiten", "suffix_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -35,7 +35,9 @@ _LL = ctypes.c_longlong
 _ARGTYPES = {
     "kalman_phase1": [_I, _P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P],
     "kalman_phase3": [_I, _P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "whiten_columns": [_I, _P, _P, _LL, _I, _P, _P, _P],
+    "whiten_columns": [_I, _P, _P, _LL, _I, _P, _P, _P, _P],
+    "suffix_reduce": [_I, _P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P],
+    "suffix_replay": [_I, _P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P],
 }
 
 

@@ -1,0 +1,100 @@
+"""Differentiable kernel path: the closed-form disturbance-smoother VJPs (K5).
+
+Counterpart of ``gpar_at_scale_tpu/ops/pallas_grad.py``.  The CUDA scans
+are not traced by autograd; the gradient of what they compute comes in
+closed form from the filter's own per-step outputs, through the adjoint
+recursions of ``ssm/blocked_grad.py`` (see its docstring for the algebra),
+with the suffix scan on the card (``ops/smoother.py``, K4a/K4b):
+
+* ``LgssmLoglik`` -- ll = log N(y | 0, Sigma(A, Q, R)) of one series.
+  Forward: K1, phase 2, K2 with per-step moments.  Backward: the adjoint
+  elements, one single-column suffix scan (K4a, R2, K4b) for (r, N), then
+  the scores -> (dA, dQ, dR, dy) x ct.
+* ``WhitenGram`` -- (G, logdet) with G = U^T Sigma^-1 U of the M + 1 DTC
+  columns U = [y - m | K_fu].  Forward: the y = 0 gain pass (K1/K2) and
+  K3 over U, which also writes every column's filtered mean; G is formed
+  in float64.  Backward: one suffix scan with E = C, g = b (n, d, M + 1),
+  L = W gives both the adjoint r of every column and the shared
+  information matrix N; the contractions of the scores (r ctsym r^T,
+  u ctsym, N A P) are plain batched products.  The JAX package runs this
+  backward as three XLA associative scans.
+
+Everything on the O(N) side is float32; cotangents that arrive in float64
+from the M x M algebra are cast to float32 first.  Both take state dim
+<= 3 with H = e1 (one Matern block), as the kernels do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpar_at_scale_torch.ops.kalman import _e1, _require_supported, decorrelate_blocked
+from gpar_at_scale_torch.ops.smoother import suffix_scan
+from gpar_at_scale_torch.ops.whiten import gram_forward
+from gpar_at_scale_torch.ssm.blocked_grad import whiten_bwd_elements, whiten_bwd_scores
+from gpar_at_scale_torch.ssm.markov import LGSSM, lgssm_of
+
+_F32 = torch.float32
+
+
+def _bwd(A, aux, ct_G, ct_ld):
+    """(ct_A, ct_Q, ct_R, ct_U) through one suffix scan on K4a/K4b."""
+    H = _e1(A.shape[-1], A)
+    C, b, W = whiten_bwd_elements(A, H, aux)
+    r, Nmat = suffix_scan(C, b, W)
+    return whiten_bwd_scores(A, H, aux, r, Nmat, ct_G, ct_ld)
+
+
+class LgssmLoglik(torch.autograd.Function):
+    """log N(y | 0, Sigma(A, Q, R)) of one float32 series through K1/K2,
+    with its gradient in (A, Q, R, y) through K4a/K4b."""
+
+    @staticmethod
+    def forward(ctx, A, Q, R, y):
+        lg = LGSSM(A=A, Q=Q, H=_e1(A.shape[-1], A), R=R)
+        ll, alpha, _, S, K, m, P = decorrelate_blocked(lg, y, return_full=True)
+        ctx.save_for_backward(A, alpha, S, K, m, P)
+        return ll
+
+    @staticmethod
+    def backward(ctx, ct):
+        A, alpha, S, K, m, P = ctx.saved_tensors
+        aux = ((alpha * torch.sqrt(S))[:, None], S, K, m[:, :, None], P)
+        half = torch.full((1, 1), -0.5, dtype=_F32, device=A.device)
+        dA, dQ, dR, dU = _bwd(A, aux, half, -0.5)  # ll's = the Gram's at -1/2
+        ct = ct.to(_F32)
+        return ct * dA, ct * dQ, ct * dR, ct * dU[:, 0]
+
+
+def lgssm_loglik(A, Q, R, y):
+    """Differentiable log-likelihood of one series through the kernels;
+    float32, A, Q (N, d, d), R, y (N,)."""
+    return LgssmLoglik.apply(*(x.to(_F32).contiguous() for x in (A, Q, R, y)))
+
+
+def logpdf_markov_pallas(kernel, t, noise_var, y):
+    """Kernel hyperparameters -> discretization (autograd) -> kernel-path
+    log-likelihood (closed-form VJP), float32.  Sum-kernel SDEs raise
+    ``NotImplementedError`` (ROADMAP P8), where the JAX package dispatches
+    to its associative-scan engine."""
+    t = torch.as_tensor(t)
+    lg = lgssm_of(kernel, t.to(_F32), noise_var, _F32)
+    _require_supported(lg)
+    return lgssm_loglik(lg.A, lg.Q, lg.R.expand(lg.num_steps), torch.as_tensor(y, device=t.device))
+
+
+class WhitenGram(torch.autograd.Function):
+    """(G, logdet) = (U^T Sigma^-1 U in float64, log det Sigma) of float32
+    (A, Q, R (N,), U (N, B)) through K1/K2/K3, with the gradient in
+    (A, Q, R, U) through K4a/K4b."""
+
+    @staticmethod
+    def forward(ctx, A, Q, R, U):
+        G, logdet, aux = gram_forward(A, Q, R, U, want_aux=True)
+        ctx.save_for_backward(A, *aux)
+        return G, logdet
+
+    @staticmethod
+    def backward(ctx, ct_G, ct_ld):
+        A, *aux = ctx.saved_tensors
+        return _bwd(A, tuple(aux), ct_G, ct_ld)

@@ -1,0 +1,214 @@
+"""Blocked suffix scan on the card: kernels K4a and K4b, and the smoother.
+
+Counterpart of ``gpar_at_scale_tpu/ops/pallas_smoother.py``.  The scan
+takes per-step affine + congruence elements (E_k (d, d), g_k (d, C),
+L_k (d, d)) and returns, for every step k,
+
+    v_k = g_k + E_k v_{k+1},   M_k = L_k + E_k M_{k+1} E_k^T,   v_n = M_n = 0,
+
+in the three phases of the JAX package's ``pallas_suffix_scan``:
+
+  R1 (K4a, ``csrc/suffix_scan.cu::suffix_reduce_kernel``) -- each time
+     block folds its elements, last step first, into one suffix element;
+  R2 (tensor code) -- a reverse exclusive prefix over the block elements
+     (``ssm.blocked._scan`` of ``_combine_smooth``), which gives every block
+     the (g0, L0) of all later blocks;
+  R3 (K4b, ``csrc/suffix_scan.cu::suffix_replay_kernel``) -- each block
+     replays its steps backwards from (g0, L0) and writes (v, M) at every
+     step.
+
+The column axis C is the JAX package's ``ssm/blocked.py::
+blocked_suffix_scan`` contract (its TPU kernel takes one column): E and L
+are shared by the columns, g carries them.  It is the backward engine of
+the RTS smoother (``pallas_smooth``, C = 1) and of the disturbance-smoother
+gradients (``ops/grad.py``: the adjoint r with C = 1 for one series, C =
+M + 1 for the whitened Gram, and the shared information matrix N).
+
+The block count is ``ssm.blocked.num_blocks_for(n)``, as for K1/K2: 16384
+blocks of 62 steps at n = 1e6.  ``suffix_reduce`` and ``suffix_replay`` are
+the kernels' wrappers; ``r1_plain`` and ``r3_plain`` their plain versions,
+the same recursions as tensor code vectorised over blocks and columns, for
+CPU tensors and as the kernels' check on the card.  The kernels stop each
+block at step n; the plain versions pad with the identity element
+(I, 0, 0), which leaves (v, M) unchanged -- the same result.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpar_at_scale_torch.ops.build import CudaKernel, ptr, require_f32
+from gpar_at_scale_torch.ops.kalman import _require_supported, decorrelate_blocked
+from gpar_at_scale_torch.ssm.blocked import (
+    _combine_smooth,
+    _inv_small,
+    _pad_block,
+    _scan,
+    _smooth_identity,
+    _unblock,
+    num_blocks_for,
+)
+from gpar_at_scale_torch.ssm.markov import LGSSM
+
+K4A = CudaKernel(
+    "K4a suffix_reduce", "suffix_scan", "suffix_reduce",
+    "gpar_at_scale_tpu/ops/pallas_smoother.py:135",
+)
+K4B = CudaKernel(
+    "K4b suffix_replay", "suffix_scan", "suffix_replay",
+    "gpar_at_scale_tpu/ops/pallas_smoother.py:187",
+)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: phases R1 and R3 as tensor code
+# ---------------------------------------------------------------------------
+
+
+def _blocked_elements(E, g, L, nb, T):
+    """(E, g, L) padded with the identity element and blocked to (T, nb, ...)."""
+    eye = torch.eye(E.shape[-1], dtype=E.dtype, device=E.device)
+    return _pad_block(E, nb, T, eye), _pad_block(g, nb, T, 0.0), _pad_block(L, nb, T, 0.0)
+
+
+def r1_plain(E, g, L, nb, T):
+    """K4a's plain version: each block's suffix element (E (nb, d, d),
+    g (nb, d, C), L (nb, d, d)), folded from the block's last step to its
+    first."""
+    Eb, gb, Lb = _blocked_elements(E, g, L, nb, T)
+    carry = _smooth_identity(nb, E.shape[-1], g.shape[-1], E.dtype, E.device)
+    for t in range(T - 1, -1, -1):
+        carry = _combine_smooth(carry, (Eb[t], gb[t], Lb[t]))
+    return carry
+
+
+def r3_plain(E, g, L, g0, L0, nb, T):
+    """K4b's plain version: each block replayed backwards from the suffix
+    (g0 (nb, d, C), L0 (nb, d, d)) of the later blocks.  Returns v (n, d, C)
+    and M (n, d, d)."""
+    n = E.shape[0]
+    Eb, gb, Lb = _blocked_elements(E, g, L, nb, T)
+    v, M = g0, L0
+    vs, Ms = g.new_empty((T,) + g0.shape), L.new_empty((T,) + L0.shape)
+    for t in range(T - 1, -1, -1):
+        v = gb[t] + Eb[t] @ v
+        M = Lb[t] + Eb[t] @ M @ Eb[t].transpose(-1, -2)
+        vs[t], Ms[t] = v, M
+    return _unblock(vs, n), _unblock(Ms, n)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_elements(name, E, g, L, nb, T):
+    require_f32(name, E, g, L)
+    n, d = E.shape[0], E.shape[-1]
+    if not 1 <= d <= 3 or E.shape != (n, d, d) or L.shape != (n, d, d):
+        raise ValueError(
+            f"{name}: E, L must be (n, d, d) with d <= 3, got {tuple(E.shape)}, {tuple(L.shape)}"
+        )
+    if g.ndim != 3 or g.shape[:2] != (n, d):
+        raise ValueError(f"{name}: g must be ({n}, {d}, C), got {tuple(g.shape)}")
+    if nb < 1 or T < 1 or nb * T < n:
+        raise ValueError(f"{name}: {nb} blocks of {T} steps do not tile {n} steps")
+    return n, d, g.shape[2]
+
+
+def suffix_reduce(E, g, L, nb: int, T: int):
+    """K4a: each block's suffix element (E (nb, d, d), g (nb, d, C),
+    L (nb, d, d)); block b folds steps [b*T, min((b+1)*T, n)).  Launches on
+    CUDA tensors, runs the plain version on CPU tensors."""
+    n, d, C = _check_elements("suffix_reduce", E, g, L, nb, T)
+    if not E.is_cuda:
+        return r1_plain(E, g, L, nb, T)
+    bE, bL = (torch.empty((nb, d, d), dtype=E.dtype, device=E.device) for _ in range(2))
+    bg = torch.empty((nb, d, C), dtype=E.dtype, device=E.device)
+    K4A(d, ptr(E), ptr(g), ptr(L), n, T, nb, C, ptr(bE), ptr(bg), ptr(bL))
+    return bE, bg, bL
+
+
+def suffix_replay(E, g, L, g0, L0, nb: int, T: int):
+    """K4b: (v (n, d, C), M (n, d, d)) by replaying each block backwards from
+    the suffix (g0 (nb, d, C), L0 (nb, d, d)) of the later blocks.  Launches
+    on CUDA tensors, runs the plain version on CPU tensors."""
+    n, d, C = _check_elements("suffix_replay", E, g, L, nb, T)
+    require_f32("suffix_replay", E, g0, L0)
+    if g0.shape != (nb, d, C) or L0.shape != (nb, d, d):
+        raise ValueError(f"suffix_replay: g0, L0 must be ({nb}, {d}, {C}), ({nb}, {d}, {d})")
+    if not E.is_cuda:
+        return r3_plain(E, g, L, g0, L0, nb, T)
+    v = torch.empty((n, d, C), dtype=E.dtype, device=E.device)
+    M = torch.empty((n, d, d), dtype=E.dtype, device=E.device)
+    K4B(d, ptr(E), ptr(g), ptr(L), n, T, nb, C, ptr(g0), ptr(L0), ptr(v), ptr(M))
+    return v, M
+
+
+def block_suffix_inits(bE, bg, bL):
+    """Phase R2: the exclusive suffix (g0, L0) entering each block from the
+    blocks after it; the last block starts from (0, 0)."""
+    _, g_inc, L_inc = _scan(_combine_smooth, (bE, bg, bL), reverse=True)
+    g0 = torch.cat([g_inc[1:], torch.zeros_like(bg[:1])])
+    L0 = torch.cat([L_inc[1:], torch.zeros_like(bL[:1])])
+    return g0.contiguous(), L0.contiguous()
+
+
+def suffix_scan(E, g, L):
+    """(v, M) of the suffix recursions v_k = g_k + E_k v_{k+1},
+    M_k = L_k + E_k M_{k+1} E_k^T from v_n = M_n = 0.
+
+    float32, d <= 3.  E, L (n, d, d); g (n, d) or (n, d, C), and v comes
+    back in g's shape; M is (n, d, d).  Tensors on the card launch K4a and
+    K4b; tensors on the CPU take the plain versions."""
+    single = g.ndim == 2
+    if single:
+        g = g[:, :, None]
+    E, g, L = (x.contiguous() for x in (E, g, L))
+    n = E.shape[0]
+    nb = num_blocks_for(n)
+    T = -(-n // nb)
+    g0, L0 = block_suffix_inits(*suffix_reduce(E, g, L, nb, T))
+    v, M = suffix_replay(E, g, L, g0, L0, nb, T)
+    return (v[:, :, 0] if single else v), M
+
+
+# ---------------------------------------------------------------------------
+# The RTS smoother on the kernels
+# ---------------------------------------------------------------------------
+
+
+def pallas_smooth(lgssm: LGSSM, y, return_state: bool = False):
+    """Blocked-scan RTS smoother of one float32 series: (f_mean (N,),
+    f_var (N,), ll); with ``return_state`` also the smoothed state moments
+    ms (N, d), Ps (N, d, d) and the smoother gains E (N, d, d) (E[k] maps
+    step k+1's smoothed moments back to step k).
+
+    The forward filter with moments runs on K1/K2, the backward pass on
+    K4a/K4b over the smoothing elements
+
+        E_k = P_k A_{k+1}^T Pp_{k+1}^-1,  g_k = m_k - E_k mp_{k+1},
+        L_k = P_k - E_k Pp_{k+1} E_k^T.
+
+    At the last step A_{k+1} = 0 and Pp_{k+1} = I stand in for the missing
+    next step, which gives the terminal element (0, m_N, P_N).  Sum-kernel
+    SDEs (state dim > 3 or H != e1) raise ``NotImplementedError``: the JAX
+    package sends them to its associative-scan smoother (ROADMAP P8)."""
+    _require_supported(lgssm)
+    ll, _, _, m, P = decorrelate_blocked(lgssm, y, return_moments=True)
+    f32 = torch.float32
+    A, Q = lgssm.A.to(f32), lgssm.Q.to(f32)
+    d = A.shape[-1]
+    A_next = torch.cat([A[1:], A.new_zeros((1, d, d))])
+    Q_next = torch.cat([Q[1:], torch.eye(d, dtype=f32, device=A.device)[None]])
+    mp_next = (A_next @ m[:, :, None])[:, :, 0]
+    Pp_next = A_next @ P @ A_next.transpose(-1, -2) + Q_next
+    E = P @ A_next.transpose(-1, -2) @ _inv_small(Pp_next)
+    g = m - (E @ mp_next[:, :, None])[:, :, 0]
+    L = P - E @ Pp_next @ E.transpose(-1, -2)
+    ms, Ps = suffix_scan(E, g, L)
+    f_mean = ms[:, 0]
+    f_var = torch.clamp(Ps[:, 0, 0], min=0.0)
+    if not return_state:
+        return f_mean, f_var, ll
+    return f_mean, f_var, ll, ms, Ps, E

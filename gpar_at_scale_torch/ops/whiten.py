@@ -14,10 +14,14 @@ column:
 
 ``whiten_sweep`` is K3's wrapper.  Its plain version (``whiten_sweep_plain``)
 computes the same recursion as a blocked affine scan over time, vectorised
-over blocks and columns.
+over blocks and columns.  Asked for them (the training path), both also
+return every column's filtered mean m_k (N, d, B), which the gradient of
+``whiten_gram`` needs (``ops/grad.py``).
 
-This slice has no gradient: the backward pass of ``whiten_gram`` is the
-training slice's (ROADMAP), so inputs that require grad raise.
+``whiten_columns`` is the one forward path (K1/K2 on y = 0, then K3).
+``whiten_gram`` forms the Gram from it and is differentiable: when an
+input requires grad it goes through ``ops.grad.WhitenGram``, whose backward
+runs the suffix-scan kernels K4a/K4b.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from gpar_at_scale_torch.ops.build import CudaKernel, ptr, require_f32
-from gpar_at_scale_torch.ops.kalman import decorrelate_blocked
+from gpar_at_scale_torch.ops.kalman import _e1, decorrelate_blocked
 from gpar_at_scale_torch.ssm.blocked import _pad_block, _scan, _unblock, num_blocks_for
 from gpar_at_scale_torch.ssm.markov import LGSSM
 
@@ -48,8 +52,9 @@ def gain_rows(A, S, K):
     ).contiguous()
 
 
-def whiten_sweep_plain(gains, Y, d):
-    """K3's plain version: (ll (B,), alpha (N, B)) by a blocked affine scan.
+def whiten_sweep_plain(gains, Y, d, want_means=False):
+    """K3's plain version: (ll (B,), alpha (N, B)) by a blocked affine scan,
+    and the filtered means m (N, d, B) if ``want_means``.
 
     Phase 1 composes each block's affine maps m -> M m + K y; an exclusive
     prefix over the block maps gives the mean entering every block; phase 3
@@ -81,6 +86,7 @@ def whiten_sweep_plain(gains, Y, d):
     m = torch.cat([Y.new_zeros((1, d, B)), c_in[:-1]])  # mean entering each block
 
     alpha = Y.new_empty((T, nb, B))
+    means = Y.new_empty((T, nb, d, B)) if want_means else None
     ll = Y.new_zeros((nb, B))
     for t in range(T):
         msk = mask[t][:, None]
@@ -90,40 +96,42 @@ def whiten_sweep_plain(gains, Y, d):
         m = torch.where(live[t][:, None, None], m_new, m)
         ll = ll - 0.5 * msk * (_LOG_2PI + logS[t][:, None] + a * a)
         alpha[t] = a
-    return ll.double().sum(0).to(Y.dtype), _unblock(alpha, n)
+        if want_means:
+            means[t] = m
+    out = (ll.double().sum(0).to(Y.dtype), _unblock(alpha, n))
+    return out + (_unblock(means, n),) if want_means else out
 
 
-def whiten_sweep(gains, Y, d: int):
+def whiten_sweep(gains, Y, d: int, want_means: bool = False):
     """K3: (ll (B,), alpha (N, B)) of the columns of Y (N, B) given the gain
-    rows (N, 3 + 2d + d*d).  Launches on CUDA tensors, runs the plain
-    version on CPU tensors."""
+    rows (N, 3 + 2d + d*d), and the filtered means m (N, d, B) if
+    ``want_means``.  Launches on CUDA tensors, runs the plain version on CPU
+    tensors."""
     require_f32("whiten_sweep", gains, Y)
     n, B = Y.shape
     if not 1 <= d <= 3 or gains.shape != (n, 3 + 2 * d + d * d):
         raise ValueError(f"whiten_sweep: gains {tuple(gains.shape)} do not fit d={d}, N={n}")
     if not Y.is_cuda:
-        return whiten_sweep_plain(gains, Y, d)
+        return whiten_sweep_plain(gains, Y, d, want_means)
     alpha = torch.empty_like(Y)
     ll = torch.empty(B, dtype=Y.dtype, device=Y.device)
-    K3(d, ptr(gains), ptr(Y), n, B, ptr(alpha), ptr(ll))
-    return ll, alpha
+    m = torch.empty((n, d, B), dtype=Y.dtype, device=Y.device) if want_means else None
+    K3(d, ptr(gains), ptr(Y), n, B, ptr(alpha), ptr(ll), ptr(m))
+    return (ll, alpha, m) if want_means else (ll, alpha)
 
 
-def _no_grad_inputs(*tensors):
-    if torch.is_grad_enabled() and any(torch.is_tensor(x) and x.requires_grad for x in tensors):
-        raise NotImplementedError(
-            "whitening through the CUDA kernels has no backward pass yet; "
-            "gradients come with the training slice (ROADMAP)"
-        )
+@torch.no_grad()
+def whiten_columns(lgssm: LGSSM, Y, want_aux: bool = False):
+    """Batched whitening of Y (N,) or (N, B) -> (ll (B,), alpha (N, B),
+    logdet), and with ``want_aux`` a fourth entry aux = (e, S, K, m, P) --
+    innovations (N, B), innovation variances (N,), gains (N, d), filtered
+    means (N, d, B) and covariances (N, d, d) -- for the backward pass
+    (``ssm.blocked_grad.whiten_bwd_elements``).
 
-
-def whiten_columns(lgssm: LGSSM, Y):
-    """Batched whitening of Y (N,) or (N, B) -> (ll (B,), alpha (N, B), logdet).
-
-    float32, state dim <= 3, H = e1.  The gains come from K1/K2 run on
-    y = 0; K3 then sweeps the B columns.  Tensors on the card launch the
-    kernels; tensors on the CPU take the plain versions."""
-    _no_grad_inputs(lgssm.A, lgssm.Q, lgssm.R, Y)
+    float32, state dim <= 3, H = e1, forward only (gradients go through
+    ``whiten_gram``).  The gains come from K1/K2 run on y = 0; K3 then
+    sweeps the B columns.  Tensors on the card launch the kernels; tensors
+    on the CPU take the plain versions."""
     A = lgssm.A.to(torch.float32).contiguous()
     Y = torch.as_tensor(Y, device=A.device).to(torch.float32)
     if Y.ndim == 1:
@@ -132,21 +140,45 @@ def whiten_columns(lgssm: LGSSM, Y):
     n, d = A.shape[0], A.shape[-1]
     if Y.shape[0] != n:
         raise ValueError(f"whiten_columns: Y has {Y.shape[0]} rows for an {n}-step SSM")
-    _, _, logdet, S, K, _, _ = decorrelate_blocked(
+    _, _, logdet, S, K, _, P = decorrelate_blocked(
         lgssm, torch.zeros(n, dtype=torch.float32, device=A.device), return_full=True
     )
-    ll, alpha = whiten_sweep(gain_rows(A, S, K), Y, d)
-    return ll, alpha, logdet
+    out = whiten_sweep(gain_rows(A, S, K), Y, d, want_means=want_aux)
+    if not want_aux:
+        return out + (logdet,)
+    ll, alpha, m = out
+    return ll, alpha, logdet, (alpha * torch.sqrt(S)[:, None], S, K, m, P)
+
+
+def gram_forward(A, Q, R, U, want_aux: bool = False):
+    """(G, logdet, aux) of float32 (A, Q, R (N,), U (N, B)) through
+    ``whiten_columns``: G = W^T W of the whitened columns and logdet in
+    float64, aux as there if ``want_aux``, else None."""
+    lg = LGSSM(A=A, Q=Q, H=_e1(A.shape[-1], A), R=R)
+    out = whiten_columns(lg, U, want_aux=want_aux)
+    W = out[1].double()
+    return W.T @ W, out[2].double(), out[3] if want_aux else None
 
 
 def whiten_gram(lgssm: LGSSM, U):
-    """(G, logdet) with G = U^T Sigma_y^-1 U, forward only.
+    """(G, logdet) with G = U^T Sigma_y^-1 U, differentiable in the LGSSM's
+    (A, Q, R) and in U.
 
     The whitened columns W come from the kernels in float32; G = W^T W is
     formed in float64.  At N = 1e6 the float32 Gram is PSD only to about
     sqrt(N) eps_f32 of its O(N) diagonal, which can make G_b + K_uu
     indefinite downstream; a float64 Gram of the stored W is PSD to float64
     rounding, and the M x M algebra after it runs in float64 too."""
-    _, W, logdet = whiten_columns(lgssm, U)
-    W = W.double()
-    return W.T @ W, logdet.double()
+    f32 = torch.float32
+    n = lgssm.num_steps
+    A, Q = lgssm.A.to(f32).contiguous(), lgssm.Q.to(f32).contiguous()
+    R = lgssm.R.to(f32).expand(n).contiguous()
+    U = torch.as_tensor(U, device=A.device).to(f32).contiguous()
+    if U.shape[0] != n:
+        raise ValueError(f"whiten_gram: U has {U.shape[0]} rows for an {n}-step SSM")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (A, Q, R, U)):
+        from gpar_at_scale_torch.ops.grad import WhitenGram
+
+        return WhitenGram.apply(A, Q, R, U)
+    G, logdet, _ = gram_forward(A, Q, R, U)
+    return G, logdet
