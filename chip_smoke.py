@@ -11,7 +11,7 @@ Phases, each of which fails the run:
    suffix-scan kernels K4a/K4b (at C = 1 and C = M + 1 columns) against
    their plain PyTorch versions on the card, at the main path's shapes
    (d = 3, N steps), and time both with CUDA events (a kernel slower than
-   its plain version is flagged, not failed);
+   its plain version is flagged, not failed); K6a-c as below;
 3. serving -- make the 16-output chain data from the seed
    (``data/chain.py``), condition the chain on fixed log-parameters drawn
    from the seed with ``fit_gpar(..., filter_impl="pallas",
@@ -30,7 +30,26 @@ Phases, each of which fails the run:
    training step, traced;
 7. full-N -- outputs 1 and 2 of that run at N = 1e6 against the float64
    blocked engine on the same inputs: the gradient at the start, and 10
-   float64 Adam steps beside the training run's nll/N trace.
+   float64 Adam steps beside the training run's nll/N trace;
+8. eeg (the dense path's main path) -- the EEG example (``examples/eeg.py``,
+   data from ``data/eeg.py``, seed 0) in float32 with
+   ``engine.pallas_dense = "on"``: IGP, exact and scaled GPAR for FZ, F1,
+   F2 (L-BFGS, at most 150 steps, the example's starts), the 100 test times
+   predicted down the chain; K6a/K6b/K6c must each launch, in the numbers
+   the call sites give (training, q(u), each request); then each
+   conditional's objective and gradient at the start against float64
+   ``torch.linalg``, and the same fits under "off" (the conditionals in
+   float64, the example's own precision), SMSE beside;
+9. eeg-bench -- ``bench.py``'s pipeline (50 Adam steps on the DTC bound,
+   q(u), one predictive of 100 points) under "on" and "off": median seconds
+   per pipeline and per request (200 sequential requests), and one traced
+   pipeline's device busy share each.
+
+Phase 2 also holds K6a/K6b/K6c against their plain versions at the EEG
+shapes (K6a at 156 x 156 with 157 columns and 256 x 256 with 413, K6b and
+K6c at 156 x 156 with 256 and 157 columns), timed beside the
+``torch.linalg`` call that computes the same function, and the VJPs
+through the kernels against the same VJPs through the plain versions.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -40,6 +59,7 @@ a result when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import subprocess
@@ -65,7 +85,8 @@ F32_FLOP_PER_S = 67e12
 # the 62 steps of a block the relative difference grows to O(1e-5); the
 # tolerance leaves a factor of about 10 over that.  K4a/K4b's recursions
 # contract (their E are adjoint transitions), so they hold the same bound.
-TOL = {"K1": 1e-4, "K2": 1e-4, "K3": 1e-4, "K4a": 1e-4, "K4b": 1e-4}
+TOL = {"K1": 1e-4, "K2": 1e-4, "K3": 1e-4, "K4a": 1e-4, "K4b": 1e-4,
+       "K6a": 1e-4, "K6b": 1e-4, "K6c": 1e-4}
 # Reference phase: float32 kernels and smoother against float64 sequential
 # filtering at N = 2500, seed 0.  Means are O(1) and differed by at most
 # 5.1e-5 on an H100 (6.1e-5 with the plain versions on a CPU): atol 2e-4.
@@ -182,6 +203,34 @@ def _rel_err(got, want, names):
     return abs_err, max(per.values()), per
 
 
+def _record(records, failures, kernel, key, got, want, names, ms, plain_ms, nbytes, flops,
+            label=None, library_ms=None):
+    """Print one kernel check, fail the run if it disagrees with its plain
+    version beyond TOL, and keep its record for the ``kernels`` line."""
+    tol_key = key.split("@")[0]
+    abs_err, rel_err, per = _rel_err(got, want, names.split())
+    bound, by = _bound_ms(nbytes, flops)
+    ok_ = math.isfinite(rel_err) and rel_err <= TOL[tol_key]
+    name = kernel.name + (f" ({label})" if label else "")
+    lib = "" if library_ms is None else f"library {library_ms:.4f} ms, "
+    _log(
+        f"[kernels] {name}: max_abs_err={abs_err:.3e} rel={rel_err:.3e} "
+        f"(tol {TOL[tol_key]:.0e}) {'ok' if ok_ else 'FAIL'}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, {lib}bound {bound:.4f} ms ({by}); "
+        + " ".join(f"{k}={v:.1e}" for k, v in per.items())
+    )
+    if not ok_:
+        failures.append(f"{name} disagrees with its plain version: rel {rel_err:.3e}")
+    if ms > plain_ms:
+        _log(f"[kernels] FLAG: {name} is {ms / plain_ms:.2f}x slower than its "
+             f"plain version (ROADMAP, performance queue)")
+    records[key] = dict(
+        name=kernel.name, route="cuda", source=kernel.source, replaces=kernel.replaces,
+        launches=0, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=library_ms,
+    )
+
+
 def check_kernels(t, Y, params, M, failures):
     """Phase 2: each kernel against its plain version on the first
     conditional's inputs.  Returns {kernel name: record}; K4a/K4b are
@@ -211,29 +260,7 @@ def check_kernels(t, Y, params, M, failures):
     T = -(-n // nb)
     _log(f"[kernels] N={n} d={d} blocks={nb} x {T} steps, B={batch.shape[1]} columns")
     records = {}
-
-    def record(kernel, key, got, want, names, ms, plain_ms, nbytes, flops, label=None):
-        tol_key = key.split("@")[0]
-        abs_err, rel_err, per = _rel_err(got, want, names.split())
-        bound, by = _bound_ms(nbytes, flops)
-        ok_ = math.isfinite(rel_err) and rel_err <= TOL[tol_key]
-        name = kernel.name + (f" ({label})" if label else "")
-        _log(
-            f"[kernels] {name}: max_abs_err={abs_err:.3e} rel={rel_err:.3e} "
-            f"(tol {TOL[tol_key]:.0e}) {'ok' if ok_ else 'FAIL'}; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
-            + " ".join(f"{k}={v:.1e}" for k, v in per.items())
-        )
-        if not ok_:
-            failures.append(f"{name} disagrees with its plain version: rel {rel_err:.3e}")
-        if ms > plain_ms:
-            _log(f"[kernels] FLAG: {name} is {ms / plain_ms:.2f}x slower than its "
-                 f"plain version (ROADMAP, performance queue)")
-        records[key] = dict(
-            name=kernel.name, route="cuda", source=kernel.source, replaces=kernel.replaces,
-            launches=0, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=None,
-        )
+    record = functools.partial(_record, records, failures)
 
     # K1: block elements
     e_k = ok.phase1(A, Q, R, y, nb, T)
@@ -309,7 +336,7 @@ def check_kernels(t, Y, params, M, failures):
 
 # Device-kernel names of the port's CUDA kernels, as the profiler reports them.
 _PORT_KERNELS = ("phase1_kernel", "phase3_kernel", "whiten_kernel", "suffix_reduce_kernel",
-                 "suffix_replay_kernel")
+                 "suffix_replay_kernel", "chol_solve_kernel", "tri_kernel")
 
 
 def profile_phase(label, fn):
@@ -466,6 +493,14 @@ def grad_check(seed, failures, device="cuda"):
             failures.append(f"gradient of y{i + 1:02d} disagrees with float64 autograd")
 
 
+def _scan_kernels():
+    """K1-K4b, the kernels of the N = 1e6 chain (K6a-c take the dense
+    path, [eeg])."""
+    from gpar_at_scale_torch.ops import K1, K2, K3, K4A, K4B
+
+    return (K1, K2, K3, K4A, K4B)
+
+
 def train_chain(t, Y, t_star, lat_star, sn, params, failures):
     """Phase 6, the main path: train the chain with 10 Adam steps per
     output through the kernels, then answer 3 requests.  Returns the
@@ -474,17 +509,16 @@ def train_chain(t, Y, t_star, lat_star, sn, params, failures):
     import torch
 
     from gpar_at_scale_torch.models import GPARConfig
-    from gpar_at_scale_torch.ops import KERNELS
 
     cfg = GPARConfig(backend="scaled", filter_impl="pallas", num_pseudo_points=M,
                      dtype=torch.float32, optimizer="adam", max_opt_steps=TRAIN_STEPS)
     torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS:
+    for k in _scan_kernels():
         k.launches = 0
     train_launches = {}
     model, fit_s, lat, (mu, var) = run_chain(
         t, Y, t_star, params, cfg, requests=3,
-        after_fit=lambda: train_launches.update({k.name: k.launches for k in KERNELS}),
+        after_fit=lambda: train_launches.update({k.name: k.launches for k in _scan_kernels()}),
     )
     n, P = Y.shape
     outs = [model.first] + model.conditionals
@@ -511,7 +545,7 @@ def train_chain(t, Y, t_star, lat_star, sn, params, failures):
          f"{train_launches}")
     if not (finite and mu_np.shape == (N_STAR, P)):
         failures.append("training produced non-finite values or predictions of the wrong shape")
-    for k in KERNELS:
+    for k in _scan_kernels():
         if train_launches[k.name] == 0:
             failures.append(f"{k.name} was not launched on the training path")
     return model, train_launches
@@ -586,6 +620,566 @@ def traced_train_step(model, failures):
         failures.append("the traced training step gave non-finite parameters")
 
 
+# ---------------------------------------------------------------------------
+# The EEG chain on the dense path: kernels K6a/K6b/K6c
+# ---------------------------------------------------------------------------
+
+# The EEG example (examples/eeg.py): FZ -> F1 -> F2, each conditioned on the
+# observed F3-F6 and the channels before it, 156 training points, 100 test
+# times, M = 156 pseudo-points (the training inputs), the example's starts,
+# L-BFGS for at most 150 steps.  float32, data from data/eeg.py (seed 0).
+EEG_PREDICTED = ("FZ", "F1", "F2")
+_DEV = "cuda"  # the card; a rehearsal on the host sets "cpu"
+EEG_OBSERVED = ("F3", "F4", "F5", "F6")
+EEG_STEPS = 150
+EEG_GP_START = (0.05, 1.0, 0.3)  # pack_gp: lengthscale, sigma, noise sigma
+EEG_COND_START = (0.1, 1.0, 1.0, 1.0, 0.3)  # pack_gpar
+# K6a, K6b, K6c launches at the JAX package's call sites.  One objective and
+# gradient evaluation: exact -- cholesky_psd(K + s2 I) and solve_lower(L, y)
+# (gp/exact.py:44,46), and the VJPs' three K6c (two for the factorization,
+# the JAX package's third solves the zero column it passes, which the port
+# does not pass; one for the solve); scaled -- chol_solve(Sigma_y,
+# [y | K_fu]) (gp/dtc.py:200-210) and cholesky_psd(K_uu) (:210), then
+# solve_lower(L_P, g) (:306; chol(P) itself is jnp.linalg.cholesky there,
+# torch.linalg here), and the VJPs' 3 + 2 + 1 K6c.  An evaluation whose
+# factorization fails (inference/optimize.py) stops after its K6a launches,
+# before the K6b, so training launches evals x eval with a surplus of K6a.
+# q(u) (:346-353): the whitening's K6a and cholesky_psd(K_uu), the two
+# solves on L_uu of _lam_chol (chol(Lam) is jnp.linalg.cholesky), the solve
+# L_uu^-1 g and cho_solve(L_D, .).  A request: scaled -- the smoother's
+# chol_solve (:375-381) and the two solves of :478, :482; exact -- condition
+# (cholesky_psd, cho_solve; gp/exact.py:112-113) and predict_f's solve
+# (:77); IGP -- the port's dense smoother (the JAX package's temporal
+# predict runs its sequential RTS smoother instead).
+EEG_EXPECT = {
+    "IGP": {"eval": (0, 0, 0), "q(u)": (0, 0, 0), "request": (1, 0, 0)},
+    "exact": {"eval": (1, 1, 3), "q(u)": (0, 0, 0), "request": (1, 2, 1)},
+    "scaled": {"eval": (2, 1, 6), "q(u)": (2, 4, 1), "request": (1, 2, 0)},
+}
+# K6 gradient check on the card: the VJPs through the kernels against the
+# same VJPs through the plain versions, max |kernel - plain| / max |plain|
+# per input.
+K6_GRAD_TOL = 1e-3
+# [eeg] start-parameter check, float32 kernels against float64 torch.linalg,
+# each component of the gradient on its own:
+# |g - g_ref| <= EEG_GRAD_RTOL |g_ref| + EEG_GRAD_ATOL.
+# With the plain versions on a CPU the gap was at most 0.02 of a bound of
+# 1e-2 |g| + 1e-2 (components 0.9 to 89); the bound set, 1e-3 |g| + 2e-3,
+# fails a 0.2% error of the largest component.  The objectives (about 170)
+# agreed to 7e-7 relative there: held to 2e-5.
+EEG_GRAD_RTOL, EEG_GRAD_ATOL = 1e-3, 2e-3
+EEG_VALUE_RTOL = 2e-5
+
+
+def _dense():
+    from gpar_at_scale_torch.ops import K6A, K6B, K6C
+
+    return (K6A, K6B, K6C)
+
+
+def _dense_counts():
+    return tuple(k.launches for k in _dense())
+
+
+def _minus(a, b):
+    return tuple(x - y for x, y in zip(a, b))
+
+
+def _get_dense_mode():
+    from gpar_at_scale_torch.config import get_config
+
+    return get_config().engine.pallas_dense
+
+
+def _set_dense_mode(mode):
+    from gpar_at_scale_torch.config import get_config
+
+    get_config().engine.pallas_dense = mode
+
+
+def _tensor_params(values, fn, device, dtype):
+    import torch
+
+    return fn(*(torch.tensor(v, dtype=torch.float64) for v in values)).to(device, dtype)
+
+
+def dense_inputs(ds, device):
+    """The dense matrices of FZ's scaled conditional at the example's
+    start, float32: Sigma_y (156 x 156) with [y | K_fu] (157 columns), the
+    spliced smoother's Sigma (256 x 256) with [K | y | K_*u] (413 columns),
+    and U = chol(K_uu)^T with K_*u^T (256 columns)."""
+    import torch
+
+    from gpar_at_scale_torch.data.eeg import TRAIN_POINTS
+    from gpar_at_scale_torch.kernels import Matern52
+
+    f32 = torch.float32
+    n = TRAIN_POINTS
+    t = torch.as_tensor(ds.t).to(device, f32)
+    X = torch.as_tensor(ds.Y[:, [ds.channels.index(c) for c in EEG_OBSERVED]]).to(device, f32)
+    y = torch.as_tensor(ds.Y[:n, ds.channels.index("FZ")]).to(device, f32)
+    tl, ts, ol, osig, ns = EEG_COND_START
+    time_k = Matern52(lengthscale=torch.tensor(tl, device=device),
+                      variance=torch.tensor(ts**2, device=device))
+    out_k = Matern52(lengthscale=torch.tensor(ol, device=device),
+                     variance=torch.tensor(osig**2, device=device))
+    eye = torch.eye(n, dtype=f32, device=device)
+    Sigma_y = (time_k(t[:n, None], t[:n, None]) + ns**2 * eye).contiguous()
+    Kfu = out_k(X[:n], X[:n])
+    batch = torch.cat([y[:, None], Kfu], dim=1).contiguous()
+    n_all = t.shape[0]
+    noise = torch.cat([torch.full((n,), ns**2), torch.full((n_all - n,), 1e10)]).to(device, f32)
+    K = time_k(t[:, None], t[:, None])
+    Sigma_s = (K + torch.diag(noise)).contiguous()
+    y_s = torch.cat([y, y.new_zeros(n_all - n)])
+    K_su = out_k(X, X[:n])
+    both = torch.cat([K, y_s[:, None], K_su], dim=1).contiguous()
+    # test-harness factor (the port never calls torch.linalg on this path)
+    L_uu = torch.linalg.cholesky((Kfu + ns**2 * eye).double()).to(f32)
+    return dict(Sigma_y=Sigma_y, batch=batch, Sigma_s=Sigma_s, both=both,
+                U=L_uu.T.contiguous(), L=L_uu.contiguous(), Kus=K_su.T.contiguous())
+
+
+def _chol_flops(n, k):
+    return n**3 / 3 + n * n * k
+
+
+def check_dense_kernels(ds, failures):
+    """K6a/K6b/K6c against their plain versions on the card at the EEG
+    shapes, timed beside the library call that computes the same function
+    (``torch.linalg.cholesky_ex`` + ``solve_triangular``, used nowhere in
+    the port); then the VJPs through the kernels against the plain
+    versions'.  Returns the records of K6a (156, 157), K6b (156, 256) and
+    K6c (156, 157), the training, predictive and backward shapes."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.ops import dense
+
+    m = dense_inputs(ds, _DEV)
+    records = {}
+    record = functools.partial(_record, records, failures)
+    for key, S, B in (("K6a", m["Sigma_y"], m["batch"]), ("K6a@256", m["Sigma_s"], m["both"])):
+        n, k = B.shape
+        got = dense.chol_solve(S, B)
+        want = dense.chol_solve(S, B, plain=True)
+        _sync(_DEV)
+        if int(got[3]) != 0 or int(want[3]) != 0:
+            failures.append(f"K6a reports a non-positive pivot at n={n}: {int(got[3])}")
+
+        def library(S=S, B=B):
+            L = torch.linalg.cholesky_ex(S).L
+            return torch.linalg.solve_triangular(L, B, upper=False)
+
+        record(dense.K6A, key, got[:3], want[:3], "U W logdet",
+               _time_ms(lambda: dense.chol_solve(S, B), reps=20),
+               _time_ms(lambda: dense.chol_solve(S, B, plain=True), reps=3),
+               _nbytes(S, B, *got), _chol_flops(n, k), label=f"n={n} k={k}",
+               library_ms=_time_ms(library, reps=20))
+    U, L = m["U"], m["L"]
+    for kern, fn, key, lib in (
+        (dense.K6B, dense.tri_ut, "K6b", lambda B: torch.linalg.solve_triangular(L, B, upper=False)),
+        (dense.K6C, dense.tri_u, "K6c", lambda B: torch.linalg.solve_triangular(U, B, upper=True)),
+    ):
+        for B in (m["Kus"], m["batch"]):
+            k = B.shape[1]
+            got = fn(U, B)
+            want = fn(U, B, plain=True)
+            _sync(_DEV)
+            main = (key == "K6b") == (k == m["Kus"].shape[1])
+            record(kern, key if main else f"{key}@{k}", [got], [want], "X",
+                   _time_ms(lambda: fn(U, B), reps=20),
+                   _time_ms(lambda: fn(U, B, plain=True), reps=3),
+                   _nbytes(U, B, got), U.shape[0] ** 2 * k, label=f"n={U.shape[0]} k={k}",
+                   library_ms=_time_ms(lambda: lib(B), reps=20))
+
+    # the VJPs (ops/dense.py: CholSolve, TriUT, TriU) through the kernels
+    # against the same algebra through the plain versions
+    rng = np.random.default_rng(7)
+    c = torch.as_tensor(rng.normal(size=m["Sigma_y"].shape[0])).to(_DEV, torch.float32)
+
+    def grads(f, *xs):
+        leaves = [x.detach().clone().requires_grad_(True) for x in xs]
+        return torch.autograd.grad(f(*leaves), leaves)
+
+    def chol_scalar(plain):
+        def f(S, B):
+            U_, W, ld, _ = dense.chol_solve(S, B, plain)
+            return (W * W).sum() + 0.7 * ld + (U_ @ c).sum()
+        return f
+
+    def tri_scalar(fn, plain):
+        return lambda U_, B: torch.cos(fn(U_, B, plain)).sum()
+
+    cases = [("K6a", chol_scalar, (m["Sigma_y"], m["batch"]))]
+    cases += [(name, functools.partial(tri_scalar, fn), (U, m["batch"]))
+              for name, fn in (("K6b", dense.tri_ut), ("K6c", dense.tri_u))]
+    for name, make, args in cases:
+        g_k, g_p = grads(make(False), *args), grads(make(True), *args)
+        _sync(_DEV)
+        rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_k, g_p)]
+        ok_ = all(math.isfinite(r) and r <= K6_GRAD_TOL for r in rel)
+        _log(f"[kernels] {name} VJP through the kernels vs the plain versions: rel "
+             f"{[f'{r:.2e}' for r in rel]} (tol {K6_GRAD_TOL:.0e}) {'ok' if ok_ else 'FAIL'}")
+        if not ok_:
+            failures.append(f"the {name} VJP through the kernels disagrees with the plain versions")
+    return records
+
+
+def _check_eeg_counts(model, ch, train, qu, req, failures):
+    """The launches of one fit against the call sites (EEG_EXPECT): q(u)
+    and a request exact; training a whole number of evaluations, counted by
+    their K6b launches, plus the K6a launches of evaluations that left the
+    domain.  Returns (evaluations, K6a launches of those that left it)."""
+    want = EEG_EXPECT[model]
+    ev = want["eval"]
+    if ev[1]:
+        evals = train[1] // ev[1]
+        ok_ = (evals >= 1 and train[1:] == (evals * ev[1], evals * ev[2])
+               and train[0] >= evals * ev[0])
+    else:
+        evals, ok_ = 0, train == (0, 0, 0)
+    if not (ok_ and qu == want["q(u)"] and req == want["request"]):
+        failures.append(f"[eeg] {model} {ch}: launches train {train}, q(u) {qu}, request {req} "
+                        f"do not match the call sites {want}")
+    return evals, train[0] - evals * ev[0]
+
+
+def _nll64(fit):
+    """A conditional's objective at its fitted parameters in float64 with
+    ``torch.linalg``: how far the float32 value it ended at is rounding."""
+    import dataclasses
+
+    import torch
+
+    from gpar_at_scale_torch.gp import exact as exact_gp
+    from gpar_at_scale_torch.gp.dtc import dtc_objective
+    from gpar_at_scale_torch.models.gpar import _conditional_bound, _exact_kernel
+
+    f64 = torch.float64
+    cfg = dataclasses.replace(fit.cfg, dtype=f64)
+    t, X, y, p = (a.to(f64) for a in (fit.t, fit.X_prev, fit.y, fit.params))
+    mode = _get_dense_mode()
+    _set_dense_mode("off")
+    try:
+        with torch.no_grad():
+            if fit.backend == "scaled":
+                return -float(_conditional_bound(cfg, t, X, y, fit.Z.to(f64))(dtc_objective, p))
+            F = torch.cat([t[:, None], X], dim=1)
+            k, nv = _exact_kernel(cfg, F.shape[1], p)
+            return float(exact_gp.nlml(k, F, y, nv))
+    finally:
+        _set_dense_mode(mode)
+
+
+def eeg_run(ds, mode, failures, dtype=None):
+    """The EEG example on the card with ``engine.pallas_dense = mode``:
+    IGP, exact and scaled GPAR for FZ, F1, F2, each channel predicted from
+    the test-time observed channels and the predicted means of those
+    before.  IGP runs in float32 through the scan kernels, the conditionals
+    in ``dtype`` (float32 by default).  Returns ({model: {channel: mean}}, seconds per optimizer step,
+    seconds per request, launches of K6a-c in training, q(u) and requests
+    summed over the fits)."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.data.eeg import TRAIN_POINTS
+    from gpar_at_scale_torch.gp.dtc import compute_q_u
+    from gpar_at_scale_torch.models import gpar
+    from gpar_at_scale_torch.models.gpar import GPARConfig, fit_conditional, fit_first_output
+    from gpar_at_scale_torch.utils.params import pack_gp, pack_gpar
+
+    _set_dense_mode(mode)
+    f32, dev = torch.float32, _DEV
+    dtype = dtype or f32
+    n = TRAIN_POINTS
+    as_dev = lambda a, dt=f32: torch.as_tensor(np.asarray(a)).to(dev, dt)  # noqa: E731
+    t_tr, t_te = as_dev(ds.t[:n]), as_dev(ds.t[n:])
+    obs = [ds.channels.index(c) for c in EEG_OBSERVED]
+    preds = {m: {} for m in EEG_EXPECT}
+    step_s = {m: [] for m in EEG_EXPECT}
+    req_s = {m: [] for m in EEG_EXPECT}
+    totals = {part: (0, 0, 0) for part in ("train", "q(u)", "request")}
+
+    def add(part, c):
+        totals[part] = tuple(a + b for a, b in zip(totals[part], c))
+
+    def request(fn):
+        before = _dense_counts()
+        _sync(_DEV)
+        t0 = time.perf_counter()
+        mu, _ = fn()
+        _sync(_DEV)
+        return mu, time.perf_counter() - t0, _minus(_dense_counts(), before)
+
+    for ch in EEG_PREDICTED:
+        yi = ds.channels.index(ch)
+        # the temporal likelihood through the scan kernels K1/K2 and K4a/K4b:
+        # 'auto' takes the sequential filter at this N, a Python loop of 156
+        # steps per evaluation (1.09 s per L-BFGS step on the card)
+        cfg = GPARConfig(first_output_backend="temporal", filter_impl="pallas",
+                         max_opt_steps=EEG_STEPS, dtype=f32)
+        before = _dense_counts()
+        fit = fit_first_output(None, t_tr, as_dev(ds.Y[:n, yi]), cfg, device=dev,
+                               init_params=_tensor_params(EEG_GP_START, pack_gp, dev, f32))
+        train = _minus(_dense_counts(), before)
+        mu, secs, req = request(lambda: fit.predict(t_te))
+        if mode == "on":
+            _check_eeg_counts("IGP", ch, train, (0, 0, 0), req, failures)
+        preds["IGP"][ch] = mu
+        step_s["IGP"].append(fit.opt.seconds / max(fit.opt.num_steps, 1))
+        req_s["IGP"].append(secs)
+        add("train", train)
+        add("request", req)
+    t_tr, t_te = as_dev(ds.t[:n], dtype), as_dev(ds.t[n:], dtype)
+    for backend in ("exact", "scaled"):
+        cols_tr = [as_dev(ds.Y[:n, i], dtype) for i in obs]
+        cols_te = [as_dev(ds.Y[n:, i], dtype) for i in obs]
+        for ch in EEG_PREDICTED:
+            yi = ds.channels.index(ch)
+            cfg = GPARConfig(backend=backend, num_pseudo_points=n, max_opt_steps=EEG_STEPS,
+                             dtype=dtype)
+            qus = []
+
+            def counted_q_u(*args, **kwargs):
+                # the fit's own q(u) at its optimum, with the counts read around it
+                before_qu = _dense_counts()
+                out = compute_q_u(*args, **kwargs)
+                qus.append(_minus(_dense_counts(), before_qu))
+                return out
+
+            before = _dense_counts()
+            gpar.compute_q_u = counted_q_u
+            try:
+                fit = fit_conditional(None, t_tr, torch.stack(cols_tr, 1),
+                                      as_dev(ds.Y[:n, yi], dtype), cfg, device=dev,
+                                      init_params=_tensor_params(EEG_COND_START, pack_gpar, dev,
+                                                                 dtype))
+            finally:
+                gpar.compute_q_u = compute_q_u
+            qu = qus[0] if qus else (0, 0, 0)
+            train = _minus(_minus(_dense_counts(), before), qu)
+            X_te = torch.stack(cols_te, 1)
+            mu, secs, req = request(lambda: fit.predict(t_te, X_te))
+            if mode == "on":
+                evals, left = _check_eeg_counts(backend, ch, train, qu, req, failures)
+                _log(f"[eeg] {mode} {backend} {ch}: {fit.opt.num_steps} L-BFGS steps, {evals} "
+                     f"evaluations (+{left} K6a launches of evaluations that left the domain), "
+                     f"nll {float(fit.opt.value):.4f} (float64 at these parameters "
+                     f"{_nll64(fit):.4f}), {fit.opt.seconds:.3f} s; "
+                     f"K6a/K6b/K6c launches: training {train}, q(u) {qu}, request {req}")
+            else:
+                _log(f"[eeg] {mode} {backend} {ch}: {fit.opt.num_steps} L-BFGS steps, nll "
+                     f"{float(fit.opt.value):.4f}, {fit.opt.seconds:.3f} s")
+            preds[backend][ch] = mu
+            step_s[backend].append(fit.opt.seconds / max(fit.opt.num_steps, 1))
+            req_s[backend].append(secs)
+            add("train", train)
+            add("q(u)", qu)
+            add("request", req)
+            cols_tr.append(as_dev(ds.Y[:n, yi], dtype))  # train on the true values
+            cols_te.append(mu)  # chain the predictions forward
+    return preds, step_s, req_s, totals
+
+
+def _smse(pred, truth):
+    import numpy as np
+
+    pred = pred.double().cpu().numpy()
+    return float(np.mean((pred - truth) ** 2) / np.var(truth))
+
+
+def eeg_grad_check(ds, failures):
+    """At the example's start, each conditional's objective and gradient
+    (exact and scaled) through the kernels (float32, "on") against float64
+    ``torch.linalg`` ("off"), each component on its own."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.data.eeg import TRAIN_POINTS
+    from gpar_at_scale_torch.gp import exact as exact_gp
+    from gpar_at_scale_torch.gp.dtc import dtc_objective
+    from gpar_at_scale_torch.models.gpar import GPARConfig, _conditional_bound, _exact_kernel
+    from gpar_at_scale_torch.utils.params import pack_gpar
+
+    n = TRAIN_POINTS
+    obs = [ds.channels.index(c) for c in EEG_OBSERVED]
+    for ci, ch in enumerate(EEG_PREDICTED):
+        cols = obs + [ds.channels.index(c) for c in EEG_PREDICTED[:ci]]
+        for backend in ("exact", "scaled"):
+            out = {}
+            for mode, dtype in (("on", torch.float32), ("off", torch.float64)):
+                _set_dense_mode(mode)
+                dev = lambda a: torch.as_tensor(np.asarray(a)).to(_DEV, dtype)  # noqa: E731
+                t, X, y = dev(ds.t[:n]), dev(ds.Y[:n, cols]), dev(ds.Y[:n, ds.channels.index(ch)])
+                cfg = GPARConfig(backend=backend, num_pseudo_points=n, dtype=dtype)
+                p = _tensor_params(EEG_COND_START, pack_gpar, _DEV, dtype).requires_grad_(True)
+                if backend == "scaled":
+                    value = -_conditional_bound(cfg, t, X, y, X)(dtc_objective, p)
+                else:
+                    F = torch.cat([t[:, None], X], dim=1)
+                    k, nv = _exact_kernel(cfg, F.shape[1], p)
+                    value = exact_gp.nlml(k, F, y, nv)
+                value.backward()
+                out[mode] = (float(value.detach()), p.grad.double().cpu().numpy())
+            (v_k, g_k), (v_r, g_r) = out["on"], out["off"]
+            over = float((np.abs(g_k - g_r) / (EEG_GRAD_ATOL + EEG_GRAD_RTOL * np.abs(g_r))).max())
+            v_ok = abs(v_k - v_r) <= EEG_VALUE_RTOL * abs(v_r)
+            ok_ = bool(np.isfinite(g_k).all()) and over <= 1.0 and v_ok
+            _log(f"[eeg] start check {backend} {ch}: nll {v_k:.5f} (kernels, float32) vs "
+                 f"{v_r:.5f} (float64); gradient {np.round(g_k, 4).tolist()} vs "
+                 f"{np.round(g_r, 4).tolist()}, {over:.3f} of the bound (rtol {EEG_GRAD_RTOL} "
+                 f"|g| + atol {EEG_GRAD_ATOL}) {'ok' if ok_ else 'FAIL'}")
+            if not ok_:
+                failures.append(f"[eeg] start check of {backend} {ch} failed")
+    _set_dense_mode("off")
+
+
+def eeg_phase(failures):
+    """The slice's main path: the EEG example under "on" (launch counts
+    read around it), its start-parameter gradient check, the same fits
+    under "off" with the conditionals in float64 (torch.linalg at the
+    example's own precision: in float32 it fails to factor F2's scaled
+    q(u) at the optimum its L-BFGS reaches on the card), and SMSE of both.
+    Returns K6a-c's launches in the "on" run."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.data.eeg import TRAIN_POINTS, generate_synthetic_eeg
+
+    ds = generate_synthetic_eeg(seed=0)
+    n = TRAIN_POINTS
+    results = {}
+    try:
+        for mode in ("on", "off"):
+            for k in _dense():
+                k.launches = 0
+            t0 = time.perf_counter()
+            results[mode] = eeg_run(ds, mode, failures, torch.float64 if mode == "off" else None)
+            launches = _dense_counts()
+            preds, step_s, req_s, totals = results[mode]
+            _log(f"[eeg] {mode}: the three models in {time.perf_counter() - t0:.1f} s; s/step "
+                 + ", ".join(f"{m} {float(np.median(v)):.4f}" for m, v in step_s.items())
+                 + "; s/request " + ", ".join(f"{m} {float(np.median(v)):.4f}" for m, v in req_s.items())
+                 + f"; K6a/K6b/K6c launches {launches}: training {totals['train']}, q(u) "
+                 f"{totals['q(u)']}, requests {totals['request']}")
+            if mode == "on":
+                on_launches = launches
+                if not all(c > 0 for c in launches):
+                    failures.append(f"[eeg] a dense kernel was not launched on the main path: {launches}")
+            elif any(launches):
+                failures.append(f"[eeg] dense kernels launched under 'off': {launches}")
+        eeg_grad_check(ds, failures)
+    finally:
+        _set_dense_mode("off")
+    _log("[eeg] SMSE  channel |   IGP on  off |  exact on  off |  scaled on  off")
+    finite = True
+    for ch in EEG_PREDICTED:
+        truth = ds.Y[n:, ds.channels.index(ch)]
+        row = []
+        for model in EEG_EXPECT:
+            for mode in ("on", "off"):
+                mu = results[mode][0][model][ch]
+                finite &= bool(torch.isfinite(mu).all()) and mu.shape == (truth.shape[0],)
+                row.append(_smse(mu, truth))
+        _log(f"[eeg] SMSE  {ch:>7} | " + " | ".join(
+            f"{row[i]:.4f} {row[i + 1]:.4f}" for i in range(0, 6, 2)))
+    if not finite:
+        failures.append("[eeg] predictions are not finite or have the wrong shape")
+    return on_launches
+
+
+def eeg_bench(failures, reps=5, requests=200):
+    """bench.py's pipeline on the card (its data, made with numpy): 50 Adam
+    steps of learning rate 5e-2 on the DTC bound through the dense
+    whitening, q(u), one predictive of 100 points; under "on" and "off",
+    in turns (on, off, off, on).  Prints the median seconds per pipeline
+    and per request (200 sequential requests) and one traced pipeline's
+    device busy share per mode."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.gp.dtc import compute_q_u, dtc_objective, predict_scaled
+    from gpar_at_scale_torch.inference.optimize import minimize_adam
+    from gpar_at_scale_torch.kernels import Matern52
+    from gpar_at_scale_torch.ssm.markov import lgssm_of
+    from gpar_at_scale_torch.utils.params import unpack_gpar
+
+    f32 = torch.float32
+    n, n_star, d = 156, 100, 3
+    rng = np.random.default_rng(0)
+    t = np.arange(1, n + 1, dtype=np.float64) / 64.0
+    t_star = (n + np.arange(1, n_star + 1, dtype=np.float64)) / 64.0
+    X = rng.normal(size=(n, d))
+    X_star = rng.normal(size=(n_star, d))
+    y = np.sin(3 * t) + 0.2 * X[:, 0] + 0.05 * rng.normal(size=n)
+    t, t_star, X, X_star, y = (torch.as_tensor(a).to(_DEV, f32) for a in (t, t_star, X, X_star, y))
+    Z = X
+
+    def kernels(p):
+        tl, ts, ol, osig, ns = unpack_gpar(p)
+        return Matern52(lengthscale=tl, variance=ts**2), Matern52(lengthscale=ol, variance=osig**2), ns**2
+
+    def nlml(p):
+        time_k, out_k, nv = kernels(p)
+        return -dtc_objective(out_k, lgssm_of(time_k, t, nv, f32), X, Z, y, uu_ridge=nv,
+                              filter_fn="dense", time_kernel=time_k, t=t)
+
+    def predict(p, qu):
+        time_k, out_k, nv = kernels(p)
+        return predict_scaled(out_k, time_k, qu, X, t, y, t_star, X_star, nv, dtype=f32)
+
+    def pipeline():
+        res = minimize_adam(nlml, torch.zeros(5, dtype=f32, device=_DEV), learning_rate=5e-2,
+                            max_steps=50)
+        time_k, out_k, nv = kernels(res.params)
+        with torch.no_grad():
+            qu = compute_q_u(out_k, lgssm_of(time_k, t, nv, f32), X, Z, y, uu_ridge=nv,
+                             filter_fn="dense", time_kernel=time_k, t=t)
+            pred = predict(res.params, qu)
+        return res, qu, pred
+
+    def timed(fn):
+        _sync(_DEV)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(_DEV)
+        return time.perf_counter() - t0, out
+
+    pipe_s = {"on": [], "off": []}
+    req_s = {"on": [], "off": []}
+    last = {}
+    try:
+        for mode in ("on", "off"):  # warm-up
+            _set_dense_mode(mode)
+            pipeline()
+        for mode in ("on", "off", "off", "on"):
+            _set_dense_mode(mode)
+            for _ in range(reps // 2 + 1):
+                secs, (res, qu, pred) = timed(pipeline)
+                pipe_s[mode].append(secs)
+            last[mode] = (res, pred)
+            with torch.no_grad():
+                for _ in range(requests // 2):
+                    req_s[mode].append(timed(lambda: predict(res.params, qu))[0])
+        for mode in ("on", "off"):
+            _set_dense_mode(mode)
+            profile_phase(f"eeg-bench pipeline ({mode})", pipeline)
+    finally:
+        _set_dense_mode("off")
+    (r_on, p_on), (r_off, p_off) = last["on"], last["off"]
+    d_mu = float((p_on.mean - p_off.mean).abs().max())
+    finite = all(bool(torch.isfinite(x).all()) for x in (p_on.mean, p_on.var, r_on.params))
+    for mode in ("on", "off"):
+        _log(f"[eeg-bench] {mode}: pipeline median {float(np.median(pipe_s[mode])):.5f} s over "
+             f"{len(pipe_s[mode])} (min {min(pipe_s[mode]):.5f}, max {max(pipe_s[mode]):.5f}); "
+             f"request median {float(np.median(req_s[mode])):.6f} s over {len(req_s[mode])} "
+             f"(min {min(req_s[mode]):.6f}); final nlml {float(last[mode][0].value):.4f}")
+    _log(f"[eeg-bench] on vs off: max |mean difference| {d_mu:.3e}; finite {finite}")
+    if not (finite and p_on.mean.shape == (n_star,)):
+        failures.append("[eeg-bench] the pipeline's predictions are not finite or of the wrong shape")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -601,8 +1195,8 @@ def main(argv=None):
     import numpy as np
 
     from gpar_at_scale_torch.data.chain import make_chain_data
+    from gpar_at_scale_torch.data.eeg import generate_synthetic_eeg
     from gpar_at_scale_torch.models import GPARConfig
-    from gpar_at_scale_torch.ops import KERNELS
     from gpar_at_scale_torch.ops.build import build_all
 
     failures = []
@@ -636,18 +1230,20 @@ def main(argv=None):
 
     # 2. kernels against their plain versions
     records = check_kernels(t, Y, params, M, failures)
+    records.update(check_dense_kernels(generate_synthetic_eeg(seed=0), failures))
 
     # 3. serving: condition the chain on the seeded parameters, answer 3 requests
     cfg = GPARConfig(backend="scaled", filter_impl="pallas", num_pseudo_points=M,
                      dtype=f32, max_opt_steps=0)
-    for k in KERNELS:
+    scan = _scan_kernels()
+    for k in scan:
         k.launches = 0
     cond_launches = {}
     model, cond_s, lat, (mu, var) = run_chain(
         t, Y, t_star, params, cfg, requests=3,
-        after_fit=lambda: cond_launches.update({k.name: k.launches for k in KERNELS}),
+        after_fit=lambda: cond_launches.update({k.name: k.launches for k in scan}),
     )
-    launches = {k.name: k.launches for k in KERNELS}
+    launches = {k.name: k.launches for k in scan}
     mu_np, var_np = mu.double().cpu().numpy(), var.double().cpu().numpy()
     finite = bool(np.isfinite(mu_np).all() and np.isfinite(var_np).all() and (var_np >= 0).all())
     shape_ok = mu_np.shape == (N_STAR, P) and var_np.shape == (N_STAR, P)
@@ -661,7 +1257,7 @@ def main(argv=None):
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not (finite and shape_ok):
         failures.append("main-path predictions are not finite or have the wrong shape")
-    for k in KERNELS[:3]:  # K4a/K4b are not on the serving path
+    for k in scan[:3]:  # K4a/K4b are not on the serving path
         if launches[k.name] == 0:
             failures.append(f"{k.name} was not launched on the serving path")
     # where the time goes: one more conditioning and one more request, traced
@@ -679,15 +1275,21 @@ def main(argv=None):
 
     # 6. the main path: train the chain, answer 3 requests; one step traced
     model, train_launches = train_chain(t, Y, t_star, lat_star, sn, params, failures)
-    for key, k in zip(("K1", "K2", "K3", "K4a", "K4b"), KERNELS):
+    for key, k in zip(("K1", "K2", "K3", "K4a", "K4b"), scan):
         records[key]["launches"] = train_launches[k.name]
     traced_train_step(model, failures)
     # 7. the start of the training run again at full N, in float64
     full_n_check(model, params, failures)
     del model
 
-    print(json.dumps({"kernels": [records[k] for k in ("K1", "K2", "K3", "K4a", "K4b")]}),
-          flush=True)
+    # 8. the dense path's main path: the EEG example through K6a-c
+    for key, n in zip(("K6a", "K6b", "K6c"), eeg_phase(failures)):
+        records[key]["launches"] = n
+    # 9. bench.py's pipeline under "on" and "off"
+    eeg_bench(failures)
+
+    keys = ("K1", "K2", "K3", "K4a", "K4b", "K6a", "K6b", "K6c")
+    print(json.dumps({"kernels": [records[k] for k in keys]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=False,

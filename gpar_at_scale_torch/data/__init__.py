@@ -1,3 +1,14 @@
 from gpar_at_scale_torch.data.chain import make_chain_data
+from gpar_at_scale_torch.data.eeg import (
+    CHAIN_ORDER,
+    TRAIN_POINTS,
+    EEGDataset,
+    generate_synthetic_eeg,
+    load_eeg,
+    load_eeg_csv,
+)
 
-__all__ = ["make_chain_data"]
+__all__ = [
+    "CHAIN_ORDER", "TRAIN_POINTS", "EEGDataset", "generate_synthetic_eeg", "load_eeg",
+    "load_eeg_csv", "make_chain_data",
+]

@@ -17,7 +17,12 @@ Whitening engines (``filter_fn``), each differentiable in the
 hyperparameters:
 
 * ``"dense"`` -- chol(Sigma_y) and one triangular solve with M+1
-  right-hand sides, for N <= ``DENSE_N_MAX``; autograd.
+  right-hand sides, for N <= ``DENSE_N_MAX``; autograd.  With
+  ``engine.pallas_dense`` switched on (``utils/psd.py``) one K6a launch
+  factorizes Sigma_y and whitens all M+1 columns, as the JAX package's
+  fused Pallas kernel does, and every factorization and solve the JAX
+  package sends to its kernels goes through K6a-c (chol(P) and chol(Lam)
+  take ``torch.linalg``, as they take ``jnp.linalg`` there).
 * ``"pallas"`` -- the CUDA blocked-scan kernels K1/K2/K3 forward and the
   suffix-scan kernels K4a/K4b backward (``ops/whiten.py::whiten_gram``,
   ``ops/grad.py``); the name is the JAX package's, so one configuration
@@ -34,11 +39,16 @@ hyperparameters:
 
 The two scan engines form the whitened Gram in float64 and run the M x M
 algebra after it in float64 (a float32 Gram at N = 1e6 can make G_b + K_uu
-indefinite), so they return float64 intermediates.
+indefinite), so they return float64 intermediates.  The dense engine stays
+in the working precision, as in the JAX package: a float32 factorization
+that fails there raises, and the L-BFGS loop (``inference/optimize.py``)
+treats that point as outside the objective's domain, as optax's line
+search treats the NaN the JAX package gets there.
 
-Not in the port yet: the Monte-Carlo predictive and the iid-noise variants
-(``dtc_objective_iid``, ``titsias_elbo``, ``predict_sparse_iid``); see
-ROADMAP.
+Not in the port yet: the Monte-Carlo predictive, the ``smooth_fn`` argument
+of ``predict_scaled`` (the port dispatches on N_all alone) and the
+iid-noise variants (``dtc_objective_iid``, ``titsias_elbo``,
+``predict_sparse_iid``); see ROADMAP.
 """
 
 from __future__ import annotations
@@ -51,7 +61,9 @@ from gpar_at_scale_torch.kernels.base import Kernel, _as_2d
 from gpar_at_scale_torch.ssm.kalman import kalman_filter
 from gpar_at_scale_torch.ssm.markov import LGSSM, lgssm_of
 from gpar_at_scale_torch.utils.psd import (
+    _pallas_dense_ok,
     cho_solve,
+    chol_solve,
     cholesky_psd,
     default_jitter,
     logdet_from_chol,
@@ -83,10 +95,15 @@ def _gram_from_white(white):
 
 def dense_whiten(time_kernel: Kernel, t, R, batch):
     """Dense whitening: (L^-1 batch, log det Sigma_y) with
-    L = chol(K_time + diag(R))."""
+    L = chol(K_time + diag(R)); under the dense switch one K6a launch
+    (the JAX package's ``_whiten_all``, ``chol_solve(Sigma, batch)``)."""
     t = t.to(batch.dtype)
     R = torch.as_tensor(R, dtype=batch.dtype, device=t.device).expand(t.shape[0])
-    L = torch.linalg.cholesky(time_kernel(t[:, None], t[:, None]) + torch.diag(R))
+    Sigma = time_kernel(t[:, None], t[:, None]) + torch.diag(R)
+    if _pallas_dense_ok(Sigma, batch):
+        _, white, logdet = chol_solve(Sigma, batch)
+        return white, logdet
+    L = torch.linalg.cholesky(Sigma)
     return solve_lower(L, batch), logdet_from_chol(L)
 
 
@@ -233,8 +250,11 @@ def _dense_smoother(time_kernel: Kernel, t_s, noise_s):
         n_all = t_s.shape[0]
         K = time_kernel(t2, t2)
         Sigma = K + torch.diag(noise_s.expand(n_all))
-        L = torch.linalg.cholesky(Sigma)
-        Wb = solve_lower(L, torch.cat([K, cols], dim=1))
+        both = torch.cat([K, cols], dim=1)
+        if _pallas_dense_ok(Sigma, both):
+            _, Wb, _ = chol_solve(Sigma, both)  # one K6a launch, N_all + M + 1 columns
+        else:
+            Wb = solve_lower(torch.linalg.cholesky(Sigma), both)
         W = Wb[:, :n_all]  # L^-1 K: W^T W = K Sigma^-1 K
         mean = W.T @ Wb[:, n_all:]
         var = time_kernel.diag_part(t2) - (W * W).sum(0)
@@ -305,8 +325,13 @@ def predict_scaled(
         Var[f*] = rowsum(((I - S) G)^2) + diag(P_smooth)
 
     with fx_bar = K_*u L^-T m_eps and G = K_*u L^-T L_D^-T.  The q(u)
-    factors are cast to ``dtype``.  The Monte-Carlo variant of the JAX
-    package (``num_samples > 0``) is not in this slice."""
+    factors are cast to ``dtype``.  Up to DENSE_N_MAX spliced steps,
+    K_*u L^-T and Phi L_D^-T are two triangular solves in ``dtype``, as in
+    the JAX package (K6b under the dense switch); above it they are
+    products with float64 inverse factors, since a triangular solve with
+    N_all ~ 1e6 right-hand sides takes seconds on the card.  The
+    Monte-Carlo variant of the JAX package (``num_samples > 0``) is not in
+    this slice."""
     if num_samples > 0:
         raise NotImplementedError("the Monte-Carlo predictive is not ported yet (ROADMAP)")
     V, V_star = _as_2d(V).to(dtype), _as_2d(V_star).to(dtype)
@@ -319,14 +344,16 @@ def predict_scaled(
     smooth_fn = smoother_for(time_kernel, t_s, noise_s)
     lgssm = lgssm_of(time_kernel, t_s, noise_s, dtype)
 
-    # K_*u L_uu^-T and Phi L_D^-T as products with the inverse factors,
-    # inverted in float64 on the M x M side: a triangular solve with N_all
-    # right-hand sides takes seconds on the card at N_all = 1e6, a product
-    # with an M x M matrix milliseconds.
     K_su = out_kernel(V_s, qu.Z.to(dtype))  # (N_all, M)
-    Phi = K_su @ _tri_inverse(qu.L_uu).to(dtype).T  # K_*u L_uu^-T
+    if t_s.shape[0] <= DENSE_N_MAX:
+        Phi = solve_lower(qu.L_uu.to(dtype), K_su.T).T  # K_*u L_uu^-T
+        G = solve_lower(qu.L_D.to(dtype), Phi.T).T  # Phi L_D^-T; Cov[f_x] = G G^T
+    else:
+        # products with the inverse factors, inverted in float64 on the
+        # M x M side (milliseconds where the solves take seconds)
+        Phi = K_su @ _tri_inverse(qu.L_uu).to(dtype).T
+        G = Phi @ _tri_inverse(qu.L_D).to(dtype).T
     fx_bar = Phi @ qu.m_eps.to(dtype)
-    G = Phi @ _tri_inverse(qu.L_D).to(dtype).T  # Phi L_D^-T; Cov[f_x] = G G^T
     sm = smooth_fn(lgssm, torch.cat([(y_s - fx_bar)[:, None], G], dim=1))
     mean_all = fx_bar + sm.mean[:, 0]
     H = G - sm.mean[:, 1:]  # (I - S) G

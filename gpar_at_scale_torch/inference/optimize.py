@@ -17,7 +17,12 @@ Semantics kept from the JAX package:
   the decrease sinks into the objective's rounding), the full L-BFGS step
   is taken if it passes the approximate Wolfe test of optax's zoom search;
   without that the loop stalls above ``gtol`` on small float64 problems
-  that optax solves.
+  that optax solves.  A point where the objective raises
+  ``torch.linalg.LinAlgError`` (a float32 factorization that failed) is
+  outside its domain: the step is tried again from the same state with half
+  the step length, as optax's zoom search shrinks its step past the NaN the
+  JAX package gets there; the loop stops when no step length down to
+  2^-29 stays inside.
 * ``minimize_adam`` -- optax's Adam (beta 0.9 / 0.999, eps 1e-8 outside the
   square root, bias-corrected; ``torch.optim.Adam`` computes the same
   update); the value returned is the one at the last evaluated point, the
@@ -30,6 +35,7 @@ Each result also carries ``trace``, the objective at every evaluated step
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Callable, NamedTuple
 
@@ -82,12 +88,35 @@ def minimize_lbfgs(
         last.update(x=x.detach().clone(), v=v.detach())
         return last["v"]
 
+    def restore(x_prev, g_prev):
+        with torch.no_grad():
+            x.copy_(x_prev)
+        x.grad = g_prev.clone()
+
+    def step_inside(x_prev, g_prev):
+        """One L-BFGS step, halving its length while the line search
+        leaves the domain; False if every length left it."""
+        state, group = copy.deepcopy(opt.state[x]), opt.param_groups[0]
+        try:
+            for i in range(_LINESEARCH_STEPS):
+                group["lr"] = 0.5**i
+                # step() first asks for f(x), whose gradient x.grad holds
+                first = [value]
+                try:
+                    opt.step(lambda: first.pop() if first else evaluate())
+                    return True
+                except torch.linalg.LinAlgError:
+                    restore(x_prev, g_prev)
+                    opt.state[x] = copy.deepcopy(state)
+            return False
+        finally:
+            group["lr"] = 1.0
+
     value, values, step = evaluate(), [], 0
     while step < max_steps and float(x.grad.norm()) > gtol:
         x_prev, g_prev = last["x"], x.grad.clone()
-        # step() first asks for f(x), whose gradient x.grad already holds
-        first = [value]
-        opt.step(lambda: first.pop() if first else evaluate())
+        if not step_inside(x_prev, g_prev):
+            break
         if torch.equal(x.detach(), x_prev):
             # No step passed the strong-Wolfe test: near the optimum the
             # decrease sinks into the objective's rounding.  Take the full
@@ -96,13 +125,15 @@ def minimize_lbfgs(
             d = opt.state[x]["d"]
             with torch.no_grad():
                 x.add_(d)
-            evaluate()
-            gd0, gd1 = float(g_prev.dot(d)), float(x.grad.dot(d))
-            if not (last["v"] <= value + _APPROX_DEC_RTOL * abs(value) and gd0 < 0
-                    and abs(gd1) <= _CURVATURE * abs(gd0)):
-                with torch.no_grad():
-                    x.copy_(x_prev)
-                value = evaluate()
+            try:
+                evaluate()
+                gd0, gd1 = float(g_prev.dot(d)), float(x.grad.dot(d))
+                ok = (last["v"] <= value + _APPROX_DEC_RTOL * abs(value) and gd0 < 0
+                      and abs(gd1) <= _CURVATURE * abs(gd0))
+            except torch.linalg.LinAlgError:
+                ok = False
+            if not ok:
+                restore(x_prev, g_prev)
                 break
         elif not torch.equal(last["x"], x.detach()):
             evaluate()  # the line search evaluated last elsewhere

@@ -1,9 +1,12 @@
 """GPAR -- Gaussian Process Autoregressive Regression, the model chain.
 
-Counterpart of ``gpar_at_scale_tpu/models/gpar.py``.  Output 1 is a temporal
-GP on time; every later output i is a scaled conditional: DTC pseudo-points
-over the previous outputs with the temporal LGSSM as structured noise
-(``gp/dtc.py``).  Prediction feeds the predicted means down the chain.
+Counterpart of ``gpar_at_scale_tpu/models/gpar.py``.  Output 1 is a GP on
+time: ``temporal`` (the LGSSM's Kalman likelihood, O(N)) or ``exact``
+(``gp/exact.py``, dense).  Every later output i is a conditional over
+(t, y_1..y_{i-1}): ``scaled`` (DTC pseudo-points over the previous outputs
+with the temporal LGSSM as structured noise, ``gp/dtc.py``) or ``exact``
+(the dense GP with the additive GPAR kernel).  Prediction feeds the
+predicted means down the chain.
 
 ``fit_*`` train the log-hyperparameters by type-II maximum likelihood
 (``inference/optimize.py``: L-BFGS or Adam on the exact gradient, through
@@ -11,7 +14,7 @@ the closed-form disturbance-smoother VJPs on the kernel path) and then
 condition: output 1 keeps its data, each conditional computes q(u) at the
 optimum.  With ``max_opt_steps = 0`` they condition on the parameters they
 are given and evaluate no objective.  The parallel fit of the conditionals
-and the exact backend come with later slices (ROADMAP).
+(``parallel=True``) comes with a later slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 
 from gpar_at_scale_torch.device import resolve_device
+from gpar_at_scale_torch.gp import exact as exact_gp
 from gpar_at_scale_torch.gp.dtc import (
     DENSE_N_MAX,
     QU,
@@ -32,7 +36,7 @@ from gpar_at_scale_torch.gp.dtc import (
     splice,
 )
 from gpar_at_scale_torch.inference.optimize import OptResult, minimize_adam, minimize_lbfgs
-from gpar_at_scale_torch.kernels import Matern52, time_kernel_only
+from gpar_at_scale_torch.kernels import Matern52, gpar_kernel, time_kernel_only
 from gpar_at_scale_torch.ssm.kalman import kalman_filter
 from gpar_at_scale_torch.ssm.kalman import logpdf as ssm_logpdf
 from gpar_at_scale_torch.ssm.markov import lgssm_of
@@ -42,6 +46,12 @@ from gpar_at_scale_torch.utils.params import init_params, unpack_gp, unpack_gpar
 @dataclass(frozen=True)
 class GPARConfig:
     """Per-model configuration, the JAX package's fields.
+
+    backend: 'exact' (dense GP, ``gp/exact.py``) or 'scaled' (DTC) for the
+    conditionals; first_output_backend: 'temporal' or 'exact' for output 1.
+    The dense factorizations of 'exact' and of the scaled backend's dense
+    branch take the kernels K6a-c when ``engine.pallas_dense`` is switched
+    on (``config.py``, ``utils/psd.py``).
 
     filter_impl: whitening engine of the scaled conditionals and filter of
     output 1's likelihood --
@@ -128,7 +138,7 @@ def _params(init, n: int, generator, cfg: GPARConfig, device):
 
 @dataclass
 class FittedGP:
-    """First output of the chain: a temporal GP on time."""
+    """First output of the chain: a GP on time (``temporal`` or ``exact``)."""
 
     params: torch.Tensor  # (3,) log-params
     cfg: GPARConfig
@@ -144,6 +154,9 @@ class FittedGP:
         l, ps, ns = unpack_gp(self.params)
         k = time_kernel_only(self.cfg.time_family, l, ps)
         t_star = _as(t_star, self.cfg, self.t.device)
+        if self.backend == "exact":
+            post = exact_gp.condition(k, self.t[:, None], self.y, ns**2)
+            return post.predict_f(t_star[:, None])
         return _temporal_predict(k, self.t, self.y, t_star, ns**2, self.cfg.dtype)
 
 
@@ -192,17 +205,30 @@ def _first_output_nll(cfg: GPARConfig, t, y):
     return nll
 
 
+def _exact_first_output_nll(cfg: GPARConfig, t, y):
+    def nll(p):
+        l, ps, ns = unpack_gp(p)
+        return exact_gp.nlml(time_kernel_only(cfg.time_family, l, ps), t[:, None], y, ns**2)
+
+    return nll
+
+
 def fit_first_output(generator, t, y, cfg: GPARConfig, init_params=None, *, device=None) -> FittedGP:
-    """Type-II ML for the temporal GP of output 1 (its likelihood by the
-    Kalman filter, O(N)); only the temporal backend is ported.  The fit
-    stores the data sorted by time."""
-    if cfg.first_output_backend != "temporal":
-        raise NotImplementedError("the exact backend (gp/exact.py) is not ported yet (ROADMAP)")
+    """Type-II ML for the GP of output 1 on time: its likelihood by the
+    Kalman filter (O(N); the data are stored sorted by time) or, with
+    ``first_output_backend="exact"``, the dense exact GP (the data as
+    given, as in the JAX package)."""
+    backend = cfg.first_output_backend
+    if backend not in ("temporal", "exact"):
+        raise ValueError(f"unknown first_output_backend {backend!r}")
     device = resolve_device(device)
     t, y = _as(t, cfg, device), _as(y, cfg, device)
+    x0 = _params(init_params, 3, generator, cfg, device)
+    if backend == "exact":
+        params, res = _train(cfg, _exact_first_output_nll(cfg, t, y), x0)
+        return FittedGP(params=params, cfg=cfg, t=t, y=y, backend="exact", opt=res)
     order = torch.argsort(t, stable=True)
     t_s, y_s = t[order], y[order]
-    x0 = _params(init_params, 3, generator, cfg, device)
     params, res = _train(cfg, _first_output_nll(cfg, t_s, y_s), x0)
     return FittedGP(params=params, cfg=cfg, t=t_s, y=y_s, backend="temporal", opt=res)
 
@@ -234,13 +260,29 @@ class FittedConditional:
         return time_k, out_k, tns**2
 
     def predict(self, t_star, X_prev_star):
+        t_star = _as(t_star, self.cfg, self.t.device)
+        X_prev_star = _as(X_prev_star, self.cfg, self.t.device)
+        if self.backend == "exact":
+            k, nv = _exact_kernel(self.cfg, 1 + self.X_prev.shape[1], self.params)
+            post = exact_gp.condition(k, _features(self.t, self.X_prev), self.y, nv)
+            return post.predict_f(_features(t_star, X_prev_star))
         time_k, out_k, nv = self._kernels()
         pred = predict_scaled(
-            out_k, time_k, self.qu, self.X_prev, self.t, self.y,
-            _as(t_star, self.cfg, self.t.device), _as(X_prev_star, self.cfg, self.t.device),
+            out_k, time_k, self.qu, self.X_prev, self.t, self.y, t_star, X_prev_star,
             nv, dtype=self.cfg.dtype,
         )
         return pred.mean, pred.var
+
+
+def _features(t, X_prev):
+    """(N, 1 + i - 1) inputs of the exact conditional: time, then the
+    previous outputs."""
+    return torch.cat([t[:, None], X_prev], dim=1)
+
+
+def _exact_kernel(cfg: GPARConfig, input_dim: int, p):
+    tl, ts, ol, osig, ns = unpack_gpar(p)
+    return gpar_kernel(cfg.time_family, cfg.out_family, input_dim, tl, ts, ol, osig), ns**2
 
 
 def _select_pseudo_points(X, m: int):
@@ -278,16 +320,31 @@ def _conditional_bound(cfg: GPARConfig, t_s, X_s, y_s, Z):
 def fit_conditional(
     generator, t, X_prev, y, cfg: GPARConfig, init_params=None, *, device=None
 ) -> FittedConditional:
-    """Type-II ML for one scaled conditional: sort by time, pick the
+    """Type-II ML for one conditional.  ``scaled``: sort by time, pick the
     pseudo-points, maximize the DTC bound through the configured whitening
     engine (Z fixed, as in the JAX package), then compute q(u) at the
-    optimum."""
-    if cfg.backend != "scaled":
-        raise NotImplementedError("the exact backend (gp/exact.py) is not ported yet (ROADMAP)")
+    optimum.  ``exact``: maximize the dense exact likelihood under the
+    additive GPAR kernel; the posterior's factors are recomputed from the
+    parameters and the data at predict time, as in the JAX package."""
+    if cfg.backend not in ("scaled", "exact"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
     device = resolve_device(device)
     t, X_prev, y = _as(t, cfg, device), _as(X_prev, cfg, device), _as(y, cfg, device)
     if X_prev.ndim == 1:
         X_prev = X_prev[:, None]
+    if cfg.backend == "exact":
+        if cfg.separate_noise:
+            raise ValueError("separate_noise applies to the scaled backend only")
+        x0 = _params(init_params, 5, generator, cfg, device)
+        X = _features(t, X_prev)
+
+        def nll(p):
+            k, nv = _exact_kernel(cfg, X.shape[1], p)
+            return exact_gp.nlml(k, X, y, nv)
+
+        params, res = _train(cfg, nll, x0)
+        return FittedConditional(params=params, cfg=cfg, t=t, X_prev=X_prev, y=y,
+                                 backend="exact", opt=res)
     x0 = _params(init_params, 6 if cfg.separate_noise else 5, generator, cfg, device)
     order = torch.argsort(t, stable=True)
     t_s, X_s, y_s = t[order], X_prev[order], y[order]

@@ -1,14 +1,29 @@
 """Positive-semi-definite linear-algebra helpers.
 
-Counterpart of ``gpar_at_scale_tpu/utils/psd.py`` without its opt-in fused
-dense-kernel dispatch (``ops/pallas_dense.py``, still to be ported).  A
-factorization that fails raises (``torch.linalg.cholesky``) instead of
-returning NaNs.
+Counterpart of ``gpar_at_scale_tpu/utils/psd.py``.  Dense factorizations
+and triangular solves go through ``torch.linalg``, or, switched on by
+``engine.pallas_dense`` (``config.py``) for 2-D float32 matrices with
+8 <= n <= 512, through the hand-written kernels K6a/K6b/K6c of
+``ops/dense.py``, keeping call sites and autograd unchanged:
+
+* ``"off"`` (default): ``torch.linalg`` everywhere;
+* ``"on"``: the CUDA kernels for CUDA tensors, ``torch.linalg`` for
+  anything else (the JAX package sends everything off a TPU to XLA);
+* ``"interpret"``: the kernels' plain versions on any device (the CPU test
+  hook, the counterpart of Pallas interpret mode).
+
+A factorization that fails raises ``torch.linalg.LinAlgError``, on either
+path, instead of returning NaNs.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+_MODES = ("off", "on", "interpret")
+_DENSE_N_MIN = 8
 
 
 def default_jitter(dtype) -> float:
@@ -27,15 +42,79 @@ def add_jitter(K, jitter=None):
     return K + (jitter * scale)[..., None, None] * eye
 
 
+def pallas_dense_mode() -> str:
+    """The dense dispatch mode, "off" | "on" | "interpret": the runtime
+    config's ``engine.pallas_dense``, overridden by the environment with
+    the JAX package's precedence (``GPAR_NO_PALLAS_DENSE`` >
+    ``GPAR_PALLAS_DENSE_INTERPRET`` > ``GPAR_PALLAS_DENSE``)."""
+    if os.environ.get("GPAR_NO_PALLAS_DENSE"):
+        return "off"
+    if os.environ.get("GPAR_PALLAS_DENSE_INTERPRET"):
+        return "interpret"
+    if os.environ.get("GPAR_PALLAS_DENSE"):
+        return "on"
+    from gpar_at_scale_torch.config import get_config
+
+    mode = get_config().engine.pallas_dense
+    if mode not in _MODES:
+        raise ValueError(f"engine.pallas_dense must be off|on|interpret, got {mode!r}")
+    return mode
+
+
+def _pallas_dense_ok(*tensors) -> bool:
+    """True when K6a-c (or, under "interpret", their plain versions) take
+    this call: the switch is not off, every tensor is 2-D float32 (and on
+    the card under "on"), and the first is n x n with 8 <= n <= 512."""
+    mode = pallas_dense_mode()
+    if mode == "off" or (mode == "on" and not all(x.is_cuda for x in tensors)):
+        return False
+    from gpar_at_scale_torch.ops.dense import DENSE_N_MAX
+
+    if any(x.ndim != 2 or x.dtype != torch.float32 for x in tensors):
+        return False
+    return _DENSE_N_MIN <= tensors[0].shape[0] <= DENSE_N_MAX
+
+
+def _raise_on_info(info):
+    """The error ``torch.linalg.cholesky`` raises, from K6a's info word."""
+    bad = int(info.max()) if info.numel() else 0
+    if bad:
+        raise torch.linalg.LinAlgError(
+            "linalg.cholesky: The factorization could not be completed because the input is "
+            f"not positive-definite (the leading minor of order {bad} is not positive-definite)."
+        )
+
+
+def chol_solve(S, B):
+    """(U, W, logdet) with S = U^T U, W = U^-T B through K6a, for a call
+    that ``_pallas_dense_ok(S, B)`` admits; raises if S is not positive
+    definite."""
+    from gpar_at_scale_torch.ops import dense
+
+    U, W, logdet, info = dense.chol_solve(S, B, plain=pallas_dense_mode() == "interpret")
+    _raise_on_info(info)
+    return U, W, logdet
+
+
 def cholesky_psd(K, jitter=None):
     """Lower Cholesky factor of a PSD matrix with relative jitter."""
-    return torch.linalg.cholesky(add_jitter(K, jitter))
+    Kj = add_jitter(K, jitter)
+    if _pallas_dense_ok(Kj):
+        U, _, _ = chol_solve(Kj, Kj.new_zeros((Kj.shape[0], 0)))
+        return U.T
+    return torch.linalg.cholesky(Kj)
 
 
 def _solve(L, b, upper_of_L: bool):
     vec = b.ndim == 1
     b2 = b[:, None] if vec else b
-    if upper_of_L:
+    if b2.ndim == 2 and L.ndim == 2 and _pallas_dense_ok(L, b2):
+        from gpar_at_scale_torch.ops import dense
+
+        # The kernels take U = L^T: L^-1 b = U^-T b, L^-T b = U^-1 b.
+        plain = pallas_dense_mode() == "interpret"
+        x = (dense.tri_u if upper_of_L else dense.tri_ut)(L.T, b2, plain)
+    elif upper_of_L:
         x = torch.linalg.solve_triangular(L.transpose(-1, -2), b2, upper=True)
     else:
         x = torch.linalg.solve_triangular(L, b2, upper=False)

@@ -27,6 +27,7 @@ themselves are checked against the same plain versions by ``chip_smoke.py``
 on the card.
 """
 
+import functools
 import math
 import re
 from pathlib import Path
@@ -880,6 +881,533 @@ def test_multi_start_matches_jax(method):
     assert rt.converged == bool(rj.converged)
 
 
+def test_lbfgs_steps_back_from_a_failed_factorization():
+    """An objective whose Cholesky factor fails outside |x_0| < 1, with its
+    optimum near that edge and a first L-BFGS step that crosses it: the
+    JAX package's cholesky returns NaN there and optax's line search backs
+    off; the port's raises, and its L-BFGS tries the step again shorter.
+    Both reach the same optimum: the value to rtol 1e-10 (measured 6.6e-12),
+    the parameters to atol 1e-5 (measured 7.0e-8)."""
+    from gpar_at_scale_tpu.inference import optimize as jopt
+    from gpar_at_scale_torch.inference import optimize as topt
+
+    failed = []
+
+    def fun_j(x):
+        L = jnp.linalg.cholesky(jnp.eye(2) + x[0] * jnp.array([[0.0, 1.0], [1.0, 0.0]]))
+        return (5 * (x[0] - 0.98) ** 2 + 0.1 * (x[1] - 0.3) ** 2
+                - 0.002 * jnp.sum(jnp.log(jnp.diagonal(L))))
+
+    def fun_t(x):
+        one = torch.ones_like(x[0])
+        try:
+            L = torch.linalg.cholesky(torch.stack([torch.stack([one, x[0]]), torch.stack([x[0], one])]))
+        except torch.linalg.LinAlgError:
+            failed.append(float(x[0]))
+            raise
+        return (5 * (x[0] - 0.98) ** 2 + 0.1 * (x[1] - 0.3) ** 2
+                - 0.002 * torch.log(torch.diagonal(L)).sum())
+
+    x0 = np.asarray([0.3, 0.0])
+    rj = jopt.minimize_lbfgs(fun_j, jnp.asarray(x0))
+    rt = topt.minimize_lbfgs(fun_t, _t(x0))
+    assert failed and all(x >= 1.0 for x in failed)
+    assert rt.converged and bool(rj.converged)
+    _close(rt.value, float(rj.value), rtol=1e-10)
+    _close(rt.params, np.asarray(rj.params), rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The dense path: K6a/K6b/K6c's plain versions, their VJPs, the dispatch,
+# the dense DTC branch, the exact GP and the EEG chain, against the JAX
+# package (its Pallas kernels in interpret mode).
+# ---------------------------------------------------------------------------
+
+F32 = torch.float32
+_DENSE_ENV = ("GPAR_PALLAS_DENSE", "GPAR_PALLAS_DENSE_INTERPRET", "GPAR_NO_PALLAS_DENSE")
+
+
+def _spd32(rng, n):
+    A = rng.normal(size=(n, n))
+    return (A @ A.T + n * np.eye(n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,k", [(24, 5), (13, 7), (40, 1)])
+def test_dense_plain_versions_match_pallas(n, k, rng):
+    """chol_solve, tri_ut and tri_u's plain versions against the JAX
+    kernels (interpret) on the same float32 inputs, with the JAX kernel
+    tests' tolerances: U rtol = atol = 2e-5, W and X 3e-5, logdet rtol
+    1e-5 (n = 13 and 40 are not multiples of the TPU kernels' 8-row
+    panels, nor of the port's 16)."""
+    from gpar_at_scale_tpu.ops import pallas_dense as jpd
+    from gpar_at_scale_torch.ops import dense as tdense
+
+    S, B = _spd32(rng, n), rng.normal(size=(n, k)).astype(np.float32)
+    Uj, Wj, ldj = jpd.chol_solve(jnp.asarray(S), jnp.asarray(B), interpret=True)
+    Ut, Wt, ldt, info = tdense.chol_solve(_t(S, F32), _t(B, F32))
+    assert int(info) == 0 and Ut.dtype == F32
+    _close(Ut, Uj, rtol=2e-5, atol=2e-5)
+    _close(Wt, Wj, rtol=3e-5, atol=3e-5)
+    _close(ldt, ldj, rtol=1e-5)
+    U = np.asarray(Uj)
+    for jfn, tfn in ((jpd.tri_ut, tdense.tri_ut), (jpd.tri_u, tdense.tri_u)):
+        _close(tfn(_t(U, F32), _t(B, F32)), jfn(jnp.asarray(U), jnp.asarray(B), interpret=True),
+               rtol=3e-5, atol=3e-5)
+
+
+def test_dense_plain_versions_batch_and_info(rng):
+    """A batch of matrices (the kernels' grid axis) against the JAX kernels
+    vmapped, as the parallel conditional fit calls them; and the info word
+    of a matrix that is not positive definite, as torch.linalg.cholesky_ex
+    gives it."""
+    from gpar_at_scale_tpu.ops import pallas_dense as jpd
+    from gpar_at_scale_torch.ops import dense as tdense
+
+    n, k, batch = 16, 3, 4
+    Ss = np.stack([_spd32(rng, n) for _ in range(batch)])
+    Bs = rng.normal(size=(batch, n, k)).astype(np.float32)
+    Uj, Wj, ldj = jax.vmap(lambda S, B: jpd.chol_solve(S, B, interpret=True))(
+        jnp.asarray(Ss), jnp.asarray(Bs))
+    Ut, Wt, ldt, info = tdense.chol_solve(_t(Ss, F32), _t(Bs, F32))
+    assert info.tolist() == [0] * batch
+    _close(Ut, Uj, rtol=2e-5, atol=2e-5)
+    _close(Wt, Wj, rtol=3e-5, atol=3e-5)
+    _close(ldt, ldj, rtol=1e-5)
+    X = tdense.tri_u(Ut, _t(Bs, F32))
+    _close(Ut @ X, Bs, rtol=0, atol=1e-5)
+    S = np.eye(20, dtype=np.float32)
+    S[11, 11] = -1.0
+    want = torch.linalg.cholesky_ex(_t(S, F32)).info
+    assert int(tdense.chol_solve(_t(S, F32), torch.zeros(20, 1))[3]) == int(want) == 12
+    with pytest.raises(torch.linalg.LinAlgError, match="order 12"):
+        tpsd._raise_on_info(tdense.chol_solve(_t(S, F32), torch.zeros(20, 1))[3])
+
+
+def _vjp_pair(which, n, k):
+    """The scalar functions of the JAX kernel tests (test_pallas_dense.py)
+    through the port's wrappers and through torch.linalg autograd."""
+    from gpar_at_scale_torch.ops import dense as tdense
+
+    def gram(A):
+        return A @ A.T + n * torch.eye(n, dtype=A.dtype)
+
+    if which == "chol_solve":
+        c = torch.as_tensor(np.random.default_rng(11).normal(size=n)).float()
+
+        def port(A, B):
+            U, W, ld, _ = tdense.chol_solve(gram(A), B)
+            return (W * W).sum() + 0.7 * ld + (U @ c).sum()
+
+        def linalg(A, B):
+            L = torch.linalg.cholesky(gram(A))
+            W = torch.linalg.solve_triangular(L, B, upper=False)
+            ld = 2.0 * torch.log(torch.diagonal(L)).sum()
+            return (W * W).sum() + 0.7 * ld + (L.T @ c).sum()
+
+        return port, linalg, c.numpy()
+    port_fn = tdense.tri_ut if which == "ut" else tdense.tri_u
+
+    def port(A, B):
+        return torch.cos(port_fn(torch.linalg.cholesky(gram(A)).T, B)).sum()
+
+    def linalg(A, B):
+        L = torch.linalg.cholesky(gram(A))
+        X = (torch.linalg.solve_triangular(L, B, upper=False) if which == "ut"
+             else torch.linalg.solve_triangular(L.T, B, upper=True))
+        return torch.cos(X).sum()
+
+    return port, linalg, None
+
+
+@pytest.mark.parametrize("which", ["chol_solve", "ut", "u"])
+def test_dense_vjps_match_jax(which, rng):
+    """The three autograd.Functions (ops/dense.py) against the JAX custom
+    VJPs (interpret) on the JAX kernel tests' scalar functions, n = 16,
+    float32, and against torch autograd through torch.linalg on the same
+    function: the JAX tests' tolerance, 2e-4 (values rtol 1e-5)."""
+    from gpar_at_scale_tpu.ops import pallas_dense as jpd
+
+    n, k = (16, 4) if which == "chol_solve" else (16, 3)
+    A0 = rng.normal(size=(n, n)).astype(np.float32)
+    B0 = rng.normal(size=(n, k)).astype(np.float32)
+    port, linalg, c = _vjp_pair(which, n, k)
+
+    def gram_j(A):
+        return A @ A.T + n * jnp.eye(n, dtype=jnp.float32)
+
+    if which == "chol_solve":
+        def scal_j(A, B):
+            U, W, ld = jpd.chol_solve(gram_j(A), B, interpret=True)
+            return jnp.sum(W * W) + 0.7 * ld + jnp.sum(U @ jnp.asarray(c))
+    else:
+        jfn = jpd.tri_ut if which == "ut" else jpd.tri_u
+
+        def scal_j(A, B):
+            return jnp.sum(jnp.cos(jfn(jnp.linalg.cholesky(gram_j(A)).T, B, interpret=True)))
+
+    v_j = scal_j(jnp.asarray(A0), jnp.asarray(B0))
+    g_j = jax.grad(scal_j, argnums=(0, 1))(jnp.asarray(A0), jnp.asarray(B0))
+    out = []
+    for fn in (port, linalg):
+        A, B = _t(A0, F32).requires_grad_(), _t(B0, F32).requires_grad_()
+        v = fn(A, B)
+        out.append((v.detach(), torch.autograd.grad(v, (A, B))))
+    (v_t, g_t), (v_l, g_l) = out
+    for want_v, want_g in ((float(v_j), g_j), (float(v_l), g_l)):
+        _close(v_t, want_v, rtol=1e-5)
+        for a, b in zip(g_t, want_g):
+            _close(a, _np(b), rtol=2e-4, atol=2e-4)
+
+
+def test_pallas_dense_dispatch_modes(rng, monkeypatch):
+    """engine.pallas_dense drives utils/psd.py as in the JAX package: "off"
+    -> torch.linalg, "on" -> the kernels for CUDA tensors only (these CPU
+    tensors stay on torch.linalg), "interpret" -> the plain versions; the
+    environment overrides the config with the JAX package's precedence; an
+    unknown mode raises.  One configuration (JSON, CLI flags) reads in both
+    packages."""
+    from gpar_at_scale_tpu import config as jcfg
+    from gpar_at_scale_torch import config as tcfg
+    from gpar_at_scale_torch.ops import dense as tdense
+
+    for v in _DENSE_ENV:
+        monkeypatch.delenv(v, raising=False)
+    calls = []
+    plain = tdense.chol_solve_plain
+    monkeypatch.setattr(tdense, "chol_solve_plain", lambda S, B: calls.append(1) or plain(S, B))
+    S, b = _t(_spd32(rng, 16), F32), _t(rng.normal(size=(16, 2)), F32)
+    cfg = tcfg.Config()
+    assert cfg.engine.pallas_dense == "off"
+    tcfg.set_config(cfg)
+    try:
+        assert tpsd.pallas_dense_mode() == "off" and not tpsd._pallas_dense_ok(S, b)
+        L_off = tpsd.cholesky_psd(S)
+        cfg.engine.pallas_dense = "on"
+        assert tpsd.pallas_dense_mode() == "on" and not tpsd._pallas_dense_ok(S, b)
+        _close(tpsd.cholesky_psd(S), _np(L_off), rtol=0, atol=0)
+        assert calls == []
+        cfg.engine.pallas_dense = "interpret"
+        assert tpsd._pallas_dense_ok(S, b)
+        for bad in (S.double(), S[None], S[:7, :7], torch.eye(513)):
+            assert not tpsd._pallas_dense_ok(bad)
+        L_int = tpsd.cholesky_psd(S)
+        assert calls == [1]
+        _close(L_int, _np(L_off), rtol=3e-5, atol=3e-5)
+        _close(tpsd.solve_lower(L_int, b), _np(torch.linalg.solve_triangular(L_off, b, upper=False)),
+               rtol=3e-5, atol=3e-5)
+        _close(tpsd.solve_upper(L_int, b[:, 0]),
+               _np(torch.linalg.solve_triangular(L_off.T, b[:, :1], upper=True))[:, 0],
+               rtol=3e-5, atol=3e-5)
+        with pytest.raises(torch.linalg.LinAlgError):
+            tpsd.cholesky_psd(-S)
+        assert all(k.launches == 0 for k in KERNELS)
+        # the environment outranks the config: off > interpret > on
+        cfg.engine.pallas_dense = "off"
+        monkeypatch.setenv("GPAR_PALLAS_DENSE", "1")
+        assert tpsd.pallas_dense_mode() == "on"
+        monkeypatch.setenv("GPAR_PALLAS_DENSE_INTERPRET", "1")
+        assert tpsd.pallas_dense_mode() == "interpret"
+        monkeypatch.setenv("GPAR_NO_PALLAS_DENSE", "1")
+        assert tpsd.pallas_dense_mode() == "off"
+        for v in _DENSE_ENV:
+            monkeypatch.delenv(v)
+        cfg.engine.pallas_dense = "banana"
+        with pytest.raises(ValueError):
+            tpsd.pallas_dense_mode()
+    finally:
+        tcfg.set_config(tcfg.Config())
+    # one configuration for both packages
+    cfg = tcfg.Config()
+    assert cfg.apply_overrides(["--engine.pallas_dense=on", "--optimizer.max_steps=7", "x"]) == ["x"]
+    for loaded in (tcfg.Config.from_json(cfg.to_json()), jcfg.Config.from_json(cfg.to_json())):
+        assert loaded.engine.pallas_dense == "on" and loaded.optimizer.max_steps == 7
+    assert tcfg.kernel_family("Matern52") is tk.Matern52
+    with pytest.raises(ValueError):
+        tcfg.kernel_family("Nope")
+
+
+def test_dense_dtc_branch_matches_jax(rng, monkeypatch):
+    """The dense branch of dtc_objective (one chol_solve whitening all M + 1
+    columns) through the plain kernels against the JAX package's through
+    its interpret kernels (``GPAR_PALLAS_DENSE_INTERPRET=1`` drives both),
+    N = 28, float32: value rtol 2e-5 and gradient rtol 2e-3, atol 2e-4, the
+    JAX dense test's tolerances; and against the port's own torch.linalg
+    path.  K6a takes Sigma_y with all M + 1 columns and K_uu alone, as in
+    the JAX package."""
+    from gpar_at_scale_torch.ops import dense as tdense
+
+    n = 28
+    t = np.sort(rng.uniform(0, 4, n)).astype(np.float32)
+    X = rng.normal(size=(n, 2)).astype(np.float32)
+    y = (np.sin(t) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    p0 = (0.1 * rng.normal(size=5)).astype(np.float32)
+
+    def obj_j(p):
+        tl, ts, ol, osig, ns = jparams.unpack_gpar(p)
+        time_k, out_k = jk.Matern52(lengthscale=tl, variance=ts**2), jk.Matern52(lengthscale=ol, variance=osig**2)
+        tj = jnp.asarray(t)
+        return jdtc.dtc_objective(out_k, jmarkov.lgssm_of(time_k, tj, ns**2, jnp.float32),
+                                  jnp.asarray(X), jnp.asarray(X[::2]), jnp.asarray(y),
+                                  uu_ridge=ns**2, filter_fn="dense", time_kernel=time_k, t=tj)
+
+    def obj_t(p):
+        tl, ts, ol, osig, ns = tparams.unpack_gpar(p)
+        time_k, out_k = tk.Matern52(lengthscale=tl, variance=ts**2), tk.Matern52(lengthscale=ol, variance=osig**2)
+        tt = _t(t, F32)
+        return tdtc.dtc_objective(out_k, tmarkov.lgssm_of(time_k, tt, ns**2, F32), _t(X, F32),
+                                  _t(X[::2], F32), _t(y, F32), uu_ridge=ns**2, filter_fn="dense",
+                                  time_kernel=time_k, t=tt)
+
+    def value_grad_t():
+        p = _t(p0, F32).requires_grad_()
+        v = obj_t(p)
+        return v.detach(), torch.autograd.grad(v, p)[0]
+
+    for v in _DENSE_ENV:
+        monkeypatch.delenv(v, raising=False)
+    v_off, g_off = value_grad_t()
+    calls = []
+    plain = tdense.chol_solve_plain
+    monkeypatch.setattr(tdense, "chol_solve_plain", lambda S, B: calls.append(S.shape) or plain(S, B))
+    monkeypatch.setenv("GPAR_PALLAS_DENSE_INTERPRET", "1")
+    v_j, g_j = jax.value_and_grad(obj_j)(jnp.asarray(p0))
+    v_t, g_t = value_grad_t()
+    assert calls == [(n, n), (n // 2, n // 2)]  # Sigma_y, then K_uu
+    _close(v_t, float(v_j), rtol=2e-5)
+    _close(g_t, np.asarray(g_j), rtol=2e-3, atol=2e-4)
+    _close(v_t, _np(v_off), rtol=2e-5)
+    _close(g_t, _np(g_off), rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype,mode", [("float64", "off"), ("float32", "interpret")])
+def test_exact_gp_matches_jax(dtype, mode, rng, monkeypatch):
+    """gp/exact.py against the JAX package's on a 2-D input, N = 30, 12 test
+    points: float64 through torch.linalg (rtol 1e-10, the same algebra) and
+    float32 through the plain kernels against the JAX interpret kernels
+    (rtol 2e-5, atol 2e-5 on values of order 0.05 to 5: measured 2.0e-6
+    of |value| + 1)."""
+    from gpar_at_scale_tpu.gp import exact as jexact
+    from gpar_at_scale_torch.gp import exact as texact
+
+    for v in _DENSE_ENV:
+        monkeypatch.delenv(v, raising=False)
+    if mode == "interpret":
+        monkeypatch.setenv("GPAR_PALLAS_DENSE_INTERPRET", "1")
+    jdt, tdt = (jnp.float64, F64) if dtype == "float64" else (jnp.float32, F32)
+    tol = dict(rtol=1e-10, atol=1e-12) if dtype == "float64" else dict(rtol=2e-5, atol=2e-5)
+    n = 30
+    x, xs = rng.uniform(0, 3, size=(n, 2)), rng.uniform(0, 3, size=(12, 2))
+    y = np.sin(x[:, 0]) + 0.5 * np.cos(x[:, 1]) + 0.1 * rng.normal(size=n)
+    kj = jk.gpar_kernel(jk.Matern52, jk.Matern52, 2, 0.8, 1.1, 1.2, 0.9)
+    kt = tk.gpar_kernel(tk.Matern52, tk.Matern52, 2, *(_t(v, tdt) for v in (0.8, 1.1, 1.2, 0.9)))
+    J = lambda a: jnp.asarray(a, jdt)  # noqa: E731
+    T = lambda a: _t(a, tdt)  # noqa: E731
+    _close(texact.log_marginal_likelihood(kt, T(x), T(y), 0.05, mean=0.1),
+           jexact.log_marginal_likelihood(kj, J(x), J(y), 0.05, mean=0.1), **tol)
+    _close(texact.nlml(kt, T(x), T(y), T(np.full(n, 0.05))),
+           jexact.nlml(kj, J(x), J(y), J(np.full(n, 0.05))), **tol)
+    pj, pt = jexact.condition(kj, J(x), J(y), 0.05, mean=0.1), texact.condition(kt, T(x), T(y), 0.05, mean=0.1)
+    for diag in (True, False):
+        for a, b in zip(pt.predict_f(T(xs), diag=diag), pj.predict_f(J(xs), diag=diag)):
+            assert a.dtype == tdt
+            _close(a, b, **tol)
+    for a, b in zip(pt.predict_y(T(xs), 0.05), pj.predict_y(J(xs), 0.05)):
+        _close(a, b, **tol)
+    _close(pt.logpdf_train(T(y)), pj.logpdf_train(J(y)), **tol)
+    draws = pt.sample_f(torch.Generator().manual_seed(0), T(xs), num_samples=3)
+    again = pt.sample_f(torch.Generator().manual_seed(0), T(xs), num_samples=3)
+    assert draws.shape == (3, 12) and bool(torch.isfinite(draws).all())
+    _close(draws, _np(again), rtol=0, atol=0)
+
+
+def test_eeg_data_matches_jax(tmp_path):
+    """data/eeg.py gives the JAX package's synthetic EEG bit for bit, and
+    its CSV loader reads channels by name in any column order."""
+    from gpar_at_scale_tpu.data import eeg as jeeg
+    from gpar_at_scale_torch.data import eeg as teeg
+
+    for seed in (0, 3):
+        dj, dt = jeeg.generate_synthetic_eeg(seed), teeg.generate_synthetic_eeg(seed)
+        assert np.array_equal(dj.t, dt.t) and np.array_equal(dj.Y, dt.Y)
+        assert tuple(dj.channels) == tuple(dt.channels)
+    assert (teeg.CHAIN_ORDER, teeg.TRAIN_POINTS, teeg.NUM_POINTS) == (
+        jeeg.CHAIN_ORDER, jeeg.TRAIN_POINTS, jeeg.NUM_POINTS)
+    assert np.array_equal(teeg.load_eeg(None, seed=0).Y_test, jeeg.load_eeg(None, seed=0).Y_test)
+    order = [6, 2, 0, 5, 1, 4, 3]
+    path = tmp_path / "eeg.csv"
+    np.savetxt(path, dt.Y[:, order], delimiter=",", fmt="%.17g",
+               header=",".join(dt.channels[i] for i in order), comments="")
+    loaded = teeg.load_eeg(str(path))
+    np.testing.assert_allclose(loaded.Y, dt.Y, rtol=1e-15)
+    assert np.array_equal(loaded.t, dt.t)
+
+
+# The EEG chain cut to a small size: the first 40 training points, M = 20,
+# the first two predicted channels (FZ, then F1 over the observed channels
+# and FZ), 3 Adam steps from the example's start, 30 test times predicted
+# down the chain, float32, dense kernels in interpret mode.
+_EEG_N, _EEG_M, _EEG_TEST, _EEG_STEPS = 40, 20, 30, 3
+_EEG_START = (0.1, 1.0, 1.0, 1.0, 0.3)
+
+
+def _eeg_small():
+    from gpar_at_scale_torch.data.eeg import generate_synthetic_eeg
+
+    ds = generate_synthetic_eeg(0)
+    n = _EEG_N
+    t_tr, t_te = ds.t[:n], ds.t[n:n + _EEG_TEST]
+    obs = [ds.channels.index(c) for c in ("F3", "F4", "F5", "F6")]
+    targets = [ds.channels.index(c) for c in ("FZ", "F1")]
+    return ds, t_tr, t_te, obs, targets
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_eeg_chain(backend):
+    """The JAX package's fits and chained predictions of the cut EEG chain,
+    its dense kernels in interpret mode.  Returns, per channel, (params,
+    objective at the trained params, mean, var)."""
+    import os
+
+    import gpar_at_scale_tpu.models.gpar as jgpar
+    from gpar_at_scale_tpu.gp import exact as jexact
+
+    ds, t_tr, t_te, obs, targets = _eeg_small()
+    saved = {v: os.environ.pop(v, None) for v in _DENSE_ENV}
+    os.environ["GPAR_PALLAS_DENSE_INTERPRET"] = "1"
+    try:
+        f32 = jnp.float32
+        cfg = jgpar.GPARConfig(backend=backend, num_pseudo_points=_EEG_M, optimizer="adam",
+                               max_opt_steps=_EEG_STEPS, dtype=f32)
+        cols_tr = [ds.Y[:_EEG_N, i] for i in obs]
+        cols_te = [ds.Y[_EEG_N:_EEG_N + _EEG_TEST, i] for i in obs]
+        out = []
+        for yi in targets:
+            X, y = np.stack(cols_tr, 1), ds.Y[:_EEG_N, yi]
+            fit = jgpar.fit_conditional(jax.random.PRNGKey(0), t_tr, X, y, cfg,
+                                        init_params=jparams.pack_gpar(*_EEG_START).astype(f32))
+            tl, ts, ol, osig, ns = jparams.unpack_gpar(fit.params)
+            if backend == "exact":
+                k = jk.gpar_kernel(jk.Matern52, jk.Matern52, 1 + X.shape[1], tl, ts, ol, osig)
+                F = jnp.concatenate([jnp.asarray(t_tr, f32)[:, None], jnp.asarray(X, f32)], 1)
+                value = jexact.nlml(k, F, jnp.asarray(y, f32), ns**2)
+            else:
+                time_k = jk.Matern52(lengthscale=tl, variance=ts**2)
+                tj = jnp.asarray(t_tr, f32)
+                value = -jdtc.dtc_objective(
+                    jk.Matern52(lengthscale=ol, variance=osig**2),
+                    jmarkov.lgssm_of(time_k, tj, ns**2, f32), jnp.asarray(X, f32), fit.Z,
+                    jnp.asarray(y, f32), uu_ridge=ns**2, filter_fn="dense", time_kernel=time_k, t=tj)
+            mu, var = fit.predict(jnp.asarray(t_te, f32), jnp.asarray(np.stack(cols_te, 1), f32))
+            out.append((np.asarray(fit.params), float(value), np.asarray(mu), np.asarray(var)))
+            cols_tr.append(y)
+            cols_te.append(np.asarray(mu))
+        return out
+    finally:
+        for v, val in saved.items():
+            os.environ.pop(v, None)
+            if val is not None:
+                os.environ[v] = val
+
+
+def _port_eeg_chain(backend, params=None):
+    """The port's side of ``_jax_eeg_chain``: trained from the example's
+    start, or, given ``params``, conditioned on them (max_opt_steps = 0).
+    Returns, per channel, (fit, objective at its params, mean, var)."""
+    from gpar_at_scale_torch.models.gpar import (
+        GPARConfig,
+        _conditional_bound,
+        _exact_kernel,
+        fit_conditional,
+    )
+    from gpar_at_scale_torch.gp import exact as texact
+
+    ds, t_tr, t_te, obs, targets = _eeg_small()
+    cfg = GPARConfig(backend=backend, num_pseudo_points=_EEG_M, optimizer="adam", dtype=F32,
+                     max_opt_steps=_EEG_STEPS if params is None else 0)
+    start = tparams.pack_gpar(*(_t(v) for v in _EEG_START)).float()
+    cols_tr = [_t(ds.Y[:_EEG_N, i], F32) for i in obs]
+    cols_te = [_t(ds.Y[_EEG_N:_EEG_N + _EEG_TEST, i], F32) for i in obs]
+    out = []
+    for j, yi in enumerate(targets):
+        y = _t(ds.Y[:_EEG_N, yi], F32)
+        fit = fit_conditional(None, t_tr, torch.stack(cols_tr, 1), y, cfg, device=CPU,
+                              init_params=start if params is None else params[j])
+        with torch.no_grad():
+            if backend == "exact":
+                F = torch.cat([fit.t[:, None], fit.X_prev], 1)
+                k, nv = _exact_kernel(cfg, F.shape[1], fit.params)
+                value = texact.nlml(k, F, fit.y, nv)
+            else:
+                at = _conditional_bound(cfg, fit.t, fit.X_prev, fit.y, fit.Z)
+                value = -at(tdtc.dtc_objective, fit.params)
+            mu, var = fit.predict(t_te, torch.stack(cols_te, 1))
+        out.append((fit, float(value), mu, var))
+        cols_tr.append(y)
+        cols_te.append(mu)
+    return out
+
+
+@pytest.mark.parametrize("backend", ["exact", "scaled"])
+def test_eeg_chain_matches_jax(backend, monkeypatch):
+    """The EEG chain cut to a small size (40 training points, M = 20, FZ
+    then F1, 3 Adam steps, 30 test times down the chain), float32, dense
+    kernels in interpret mode on both sides, against the JAX package's
+    fit_conditional from the same start.  Both run float32 kernels with
+    other summation orders (the port's plain versions factor in 16-row
+    panels, the JAX kernels in 8-row ones): measured, the trained
+    log-parameters (moved about 0.15 by the 3 steps) within 1.6e-6, the
+    objectives (about 35) within 1.6e-6 relative, the predicted means
+    (order 1) within 7.8e-6 and the latent variances (0.1 to 2) within
+    5.5e-6 relative -- F1's inputs
+    carry FZ's prediction, so its gap is the chain's.  Held to atol 1e-5,
+    rtol 1e-5, atol 5e-5 and rtol 1e-4.  Every dense call went through the
+    plain versions and no kernel launched."""
+    from gpar_at_scale_torch.ops import dense as tdense
+
+    for v in _DENSE_ENV:
+        monkeypatch.delenv(v, raising=False)
+    want = _jax_eeg_chain(backend)
+    monkeypatch.setenv("GPAR_PALLAS_DENSE_INTERPRET", "1")
+    calls = []
+    plain = tdense.chol_solve_plain
+    monkeypatch.setattr(tdense, "chol_solve_plain", lambda S, B: calls.append(1) or plain(S, B))
+    for k in KERNELS:
+        k.launches = 0
+    got = _port_eeg_chain(backend)
+    assert calls and all(k.launches == 0 for k in KERNELS)
+    start = np.asarray(jparams.pack_gpar(*_EEG_START))
+    for (fit, value, mu, var), (p_j, v_j, mu_j, var_j) in zip(got, want):
+        assert fit.opt.num_steps == _EEG_STEPS and float(np.abs(_np(fit.params) - start).max()) > 0.1
+        _close(fit.params, p_j, rtol=0, atol=1e-5)
+        _close(value, v_j, rtol=1e-5)
+        assert mu.shape == (_EEG_TEST,) and mu.dtype == F32
+        _close(mu, mu_j, rtol=0, atol=5e-5)
+        _close(var, var_j, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("backend", ["exact", "scaled"])
+def test_eeg_chain_from_jax_params(backend, monkeypatch):
+    """The JAX-fitted log-parameters of the cut EEG chain carried across by
+    params_from_numpy: the port conditions on them (q(u) for scaled, the
+    exact posterior's factors recomputed from the parameters and the data)
+    and predicts as the JAX package does, to the tolerances of the test
+    above (measured: objectives within 3.4e-7, means 2.4e-6, variances
+    1.6e-6 relative)."""
+    for v in _DENSE_ENV:
+        monkeypatch.delenv(v, raising=False)
+    want = _jax_eeg_chain(backend)
+    monkeypatch.setenv("GPAR_PALLAS_DENSE_INTERPRET", "1")
+    params = convert.params_from_numpy([np.zeros(3)] + [w[0] for w in want], device=CPU,
+                                       dtype=F32)[1:]
+    got = _port_eeg_chain(backend, params=params)
+    for (fit, value, mu, var), (p_j, v_j, mu_j, var_j) in zip(got, want):
+        assert fit.opt is None
+        _close(fit.params, p_j, rtol=0, atol=0)
+        _close(value, v_j, rtol=1e-5)
+        _close(mu, mu_j, rtol=0, atol=5e-5)
+        _close(var, var_j, rtol=1e-4, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # Guards
 # ---------------------------------------------------------------------------
@@ -912,8 +1440,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_serving_slice_guards():
-    """max_opt_steps > 0 trains now; the parallel fit and the exact backend
-    still raise (ROADMAP)."""
+    """max_opt_steps > 0 trains; the exact backend fits and predicts (for
+    the conditionals and for output 1); the parallel fit still raises
+    (ROADMAP), and so does separate_noise with the exact backend, as in the
+    JAX package."""
     from gpar_at_scale_torch.models import GPARConfig, fit_gpar
 
     t, Y = np.linspace(0, 1, 12), np.random.default_rng(2).normal(size=(12, 2))
@@ -921,10 +1451,18 @@ def test_serving_slice_guards():
                      device=CPU)
     assert [f.opt.num_steps for f in (model.first, *model.conditionals)] == [2, 2]
     assert model.first.opt.trace.shape == (2,)
+    exact = fit_gpar(None, t, Y, GPARConfig(backend="exact", first_output_backend="exact",
+                                            max_opt_steps=2), device=CPU)
+    assert [f.backend for f in (exact.first, *exact.conditionals)] == ["exact", "exact"]
+    mu, var = exact.predict(np.linspace(0, 1.2, 5))
+    assert mu.shape == var.shape == (5, 2) and bool(torch.isfinite(mu).all() and (var >= 0).all())
     with pytest.raises(NotImplementedError, match="parallel"):
         fit_gpar(None, t, Y, GPARConfig(backend="scaled", max_opt_steps=0), parallel=True, device=CPU)
-    with pytest.raises(NotImplementedError):
-        fit_gpar(None, t, Y, GPARConfig(backend="exact", max_opt_steps=0), device=CPU)
+    with pytest.raises(NotImplementedError, match="parallel"):
+        fit_gpar(None, t, Y, GPARConfig(backend="exact", max_opt_steps=0), parallel=True, device=CPU)
+    with pytest.raises(ValueError, match="separate_noise"):
+        fit_gpar(None, t, Y, GPARConfig(backend="exact", separate_noise=True, max_opt_steps=0),
+                 device=CPU)
 
 
 def test_cpu_tensors_take_plain_path(rng):
@@ -953,4 +1491,12 @@ def test_cpu_tensors_take_plain_path(rng):
     v_p, M_p = tops_smoother.r3_plain(0.3 * E, g, L, *tops_smoother.block_suffix_inits(*r1), nb, T)
     _close(v, v_p, rtol=0, atol=0)
     _close(M, M_p, rtol=0, atol=0)
+    from gpar_at_scale_torch.ops import dense as tdense
+
+    S, B = _t(_spd32(rng, 20), F32), _t(rng.normal(size=(20, 3)), F32)
+    for got, want in zip(tdense.chol_solve(S, B), tdense.chol_solve_plain(S, B)):
+        _close(got, _np(want), rtol=0, atol=0)
+    U = tdense.chol_solve(S, B)[0]
+    _close(tdense.tri_ut(U, B), _np(tdense.tri_ut_plain(U, B)), rtol=0, atol=0)
+    _close(tdense.tri_u(U, B), _np(tdense.tri_u_plain(U, B)), rtol=0, atol=0)
     assert all(k.launches == 0 for k in KERNELS)
