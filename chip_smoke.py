@@ -7,11 +7,15 @@ Phases, each of which fails the run:
 
 1. build  -- compile the CUDA kernels from ``gpar_at_scale_torch/csrc/``
    with nvcc for sm_90a (one process per source, in parallel);
-2. kernels -- hold K1, K2, K3 (with and without its filtered means) and the
-   suffix-scan kernels K4a/K4b (at C = 1 and C = M + 1 columns) against
-   their plain PyTorch versions on the card, at the main path's shapes
-   (d = 3, N steps), and time both with CUDA events (a kernel slower than
-   its plain version is flagged, not failed); K6a-c as below;
+2. kernels -- hold K1, K2, K3 (with and without its filtered means, on the
+   same time blocking as its plain version) and the suffix-scan kernels
+   K4a/K4b (at C = 1 and C = M + 1 columns) against their plain PyTorch
+   versions on the card, at the main path's shapes (d = 3, N steps), and
+   time both with CUDA events (a kernel slower than its plain version is
+   flagged, not failed); the device kernels one K3 sweep runs, with their
+   times; K3 and K6a at small edge shapes (d = 1, 2, masked steps, column
+   tiles, padding-only blocks; several right-hand-side tiles, a batch, the
+   large-n branch); K6a-c as below;
 3. serving -- make the 16-output chain data from the seed
    (``data/chain.py``), condition the chain on fixed log-parameters drawn
    from the seed with ``fit_gpar(..., filter_impl="pallas",
@@ -46,10 +50,11 @@ Phases, each of which fails the run:
    pipeline's device busy share each.
 
 Phase 2 also holds K6a/K6b/K6c against their plain versions at the EEG
-shapes (K6a at 156 x 156 with 157 columns and 256 x 256 with 413, K6b and
-K6c at 156 x 156 with 256 and 157 columns), timed beside the
-``torch.linalg`` call that computes the same function, and the VJPs
-through the kernels against the same VJPs through the plain versions.
+shapes (K6a at 156 x 156 with 157 columns and 256 x 256 with 413, and
+each with no right-hand side, the factorization alone; K6b and K6c at
+156 x 156 with 256 and 157 columns), timed beside the ``torch.linalg``
+call that computes the same function, and the VJPs through the kernels
+against the same VJPs through the plain versions.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -80,11 +85,12 @@ F32_FLOP_PER_S = 67e12
 # Tolerances of the kernel checks, as max |kernel - plain| / max |plain| per
 # output.  Both sides run the same float32 recursion; the kernel contracts
 # a*b + c into FMAs and keeps the d x d algebra in registers, while the
-# plain version rounds every product and sums through batched matmuls, and
-# K3's plain version re-associates the time recursion into blocks.  Over
-# the 62 steps of a block the relative difference grows to O(1e-5); the
-# tolerance leaves a factor of about 10 over that.  K4a/K4b's recursions
-# contract (their E are adjoint transitions), so they hold the same bound.
+# plain version rounds every product and sums through batched matmuls (K3's
+# two sides share the time blocking, but not the order of the prefix over
+# block maps).  Over the 62 steps of a block the relative difference grows
+# to O(1e-5); the tolerance leaves a factor of about 10 over that.
+# K4a/K4b's recursions contract (their E are adjoint transitions), so they
+# hold the same bound.
 TOL = {"K1": 1e-4, "K2": 1e-4, "K3": 1e-4, "K4a": 1e-4, "K4b": 1e-4,
        "K6a": 1e-4, "K6b": 1e-4, "K6c": 1e-4}
 # Reference phase: float32 kernels and smoother against float64 sequential
@@ -290,18 +296,22 @@ def check_kernels(t, Y, params, M, failures):
     # training calls it (every column's filtered means stored too)
     _, _, _, S, K, _, _ = ok.decorrelate_blocked(lgssm, torch.zeros_like(y), return_full=True)
     gains = ow.gain_rows(A, S, K)
+    # (both sides on the same nb x T time blocking)
     for want_means, key, names in ((False, "K3", "ll alpha"), (True, "K3@means", "ll alpha m")):
-        w_k = ow.whiten_sweep(gains, batch, d, want_means=want_means)
-        w_p = ow.whiten_sweep_plain(gains, batch, d, want_means=want_means)
+        sweep = functools.partial(ow.whiten_sweep, gains, batch, d, want_means, nb, T)
+        plain = functools.partial(ow.whiten_sweep_plain, gains, batch, d, want_means, nb, T)
+        w_k, w_p = sweep(), plain()
         _sync(t.device)
         record(
-            ow.K3, key, w_k, w_p, names,
-            _time_ms(lambda: ow.whiten_sweep(gains, batch, d, want_means=want_means), reps=3),
-            _time_ms(lambda: ow.whiten_sweep_plain(gains, batch, d, want_means=want_means), reps=3),
+            ow.K3, key, w_k, w_p, names, _time_ms(sweep, reps=20), _time_ms(plain, reps=3),
             _nbytes(gains, batch, *w_k), n * _k3_flops(d, batch.shape[1]),
             label="with means" if want_means else None,
         )
         del w_k, w_p
+    parts = _device_kernels(sweep)
+    _log(f"[kernels] K3: one sweep (with means) runs {sum(c for _, c, _ in parts)} device "
+         f"kernels, counted as one launch: "
+         + "; ".join(f"{name[:40]} x{c} {ms:.4f} ms" for name, c, ms in parts))
 
     # K4a/K4b: the adjoint elements of the whitened-Gram backward (C = M + 1)
     # and their first column alone (the width of output 1's backward)
@@ -334,9 +344,71 @@ def check_kernels(t, Y, params, M, failures):
     return records
 
 
+def check_kernel_edges(failures):
+    """K3 and K6a against their plain versions at small shapes the main
+    paths do not reach: K3 at d = 1, 2, 3 with masked steps, one column,
+    several column tiles, a ragged last block and a block of padding only;
+    K6a with no, one and several right-hand-side tiles, a batch, and n past
+    the shared-memory bound (its L2-resident branch)."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.ops import dense
+    from gpar_at_scale_torch.ops import whiten as ow
+
+    rng = np.random.default_rng(3)
+    f32 = torch.float32
+    worst = {}
+    for d, n, B, nb, T in ((1, 9, 1, 4, 3), (2, 333, 70, 20, 17), (3, 333, 33, 7, 48),
+                           (3, 1000, 5, 62, 17)):
+        S = rng.uniform(0.5, 2.0, n)
+        mask = (rng.uniform(size=n) > 0.1).astype(np.float64)
+        gains = np.concatenate([S[:, None], np.log(S)[:, None], mask[:, None],
+                                rng.normal(size=(n, 2 * d)), rng.uniform(-0.6, 0.6, (n, d * d)) / d],
+                               axis=1)
+        g = torch.as_tensor(gains).to(_DEV, f32).contiguous()
+        Y = torch.as_tensor(rng.normal(size=(n, B))).to(_DEV, f32)
+        got = ow.whiten_sweep(g, Y, d, True, nb, T)
+        want = ow.whiten_sweep_plain(g, Y, d, True, nb, T)
+        worst[f"K3 d={d} n={n} B={B} {nb}x{T}"] = _rel_err(got, want, "ll alpha m".split())[1]
+    for n, k, batch in ((13, 0, 1), (13, 5, 1), (40, 70, 3), (156, 150, 1), (300, 130, 1),
+                        (512, 3, 1)):
+        A = torch.as_tensor(rng.normal(size=(batch, n, n))).to(_DEV, f32)
+        S = (A @ A.transpose(-1, -2) + n * torch.eye(n, device=_DEV)).contiguous()
+        Bm = torch.as_tensor(rng.normal(size=(batch, n, k))).to(_DEV, f32)
+        got, want = dense.chol_solve(S, Bm), dense.chol_solve(S, Bm, plain=True)
+        names = "U W logdet" if k else "U logdet"
+        pick = (lambda o: o[:3]) if k else (lambda o: o[:3:2])
+        worst[f"K6a n={n} k={k} batch={batch}"] = _rel_err(pick(got), pick(want), names.split())[1]
+        if got[3].tolist() != want[3].tolist():
+            failures.append(f"K6a info {got[3].tolist()} != plain {want[3].tolist()} at n={n}")
+    _sync(_DEV)
+    for name, rel in worst.items():
+        ok_ = math.isfinite(rel) and rel <= TOL[name.split()[0]]
+        _log(f"[kernels] edge {name}: rel {rel:.3e} {'ok' if ok_ else 'FAIL'}")
+        if not ok_:
+            failures.append(f"edge case {name} disagrees with its plain version: rel {rel:.3e}")
+
+
 # Device-kernel names of the port's CUDA kernels, as the profiler reports them.
-_PORT_KERNELS = ("phase1_kernel", "phase3_kernel", "whiten_kernel", "suffix_reduce_kernel",
-                 "suffix_replay_kernel", "chol_solve_kernel", "tri_kernel")
+_PORT_KERNELS = ("phase1_kernel", "phase3_kernel", "sweep_kernel", "prefix_kernel",
+                 "ll_sum_kernel", "suffix_reduce_kernel", "suffix_replay_kernel",
+                 "chol_solve_kernel", "chol_solve_l2_kernel", "tri_kernel")
+
+
+def _device_kernels(fn):
+    """The device kernels and copies one call of fn() runs (torch.profiler):
+    [(name, count, device ms)]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
 
 
 def profile_phase(label, fn):
@@ -776,6 +848,16 @@ def check_dense_kernels(ds, failures):
                _time_ms(lambda: dense.chol_solve(S, B, plain=True), reps=3),
                _nbytes(S, B, *got), _chol_flops(n, k), label=f"n={n} k={k}",
                library_ms=_time_ms(library, reps=20))
+        # the factorization alone (k = 0, as utils/psd.py calls it)
+        empty = B[:, :0].contiguous()
+        got0 = dense.chol_solve(S, empty)
+        want0 = dense.chol_solve(S, empty, plain=True)
+        _sync(_DEV)
+        record(dense.K6A, f"{key}@k0", got0[:3:2], want0[:3:2], "U logdet",
+               _time_ms(lambda: dense.chol_solve(S, empty), reps=20),
+               _time_ms(lambda: dense.chol_solve(S, empty, plain=True), reps=3),
+               _nbytes(S, *got0), _chol_flops(n, 0), label=f"n={n} k=0",
+               library_ms=_time_ms(lambda: torch.linalg.cholesky_ex(S), reps=20))
     U, L = m["U"], m["L"]
     for kern, fn, key, lib in (
         (dense.K6B, dense.tri_ut, "K6b", lambda B: torch.linalg.solve_triangular(L, B, upper=False)),
@@ -1230,6 +1312,7 @@ def main(argv=None):
 
     # 2. kernels against their plain versions
     records = check_kernels(t, Y, params, M, failures)
+    check_kernel_edges(failures)
     records.update(check_dense_kernels(generate_synthetic_eeg(seed=0), failures))
 
     # 3. serving: condition the chain on the seeded parameters, answer 3 requests

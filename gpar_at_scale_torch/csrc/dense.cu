@@ -20,37 +20,43 @@
 // padding to a multiple of 8, the transpose done as a product with eye, and
 // the nilpotent log-depth inverse of the diagonal blocks.
 //
-// Design.  One thread block per matrix; the grid's third axis indexes a
-// batch of matrices (the stride between them is n * n and n * k).  A 256 x
-// 256 matrix (256 KB) does not fit in the 227 KB of shared memory a block
-// may use, so the factorization is right-looking over panels of kNB = 16
-// rows: the current panel sits in shared memory, the trailing matrix stays
-// in device memory (in U's own buffer, upper triangle only), where it lives
-// in the 50 MB L2.  Per panel:
-//   1. the panel's rows are factored column by column in shared memory, one
-//      barrier per column, the rank-1 update of the panel's later rows
-//      spread over all threads by row and column;
-//   2. the panel's rows of the right-hand side are solved, one thread per
-//      column for the kNB x kNB diagonal block (a substitution in
-//      registers), then every later row is updated by all threads, by row
-//      and by column, in tiles of kKT = 64 columns;
-//   3. the trailing matrix takes the rank-kNB update, spread over all
-//      threads by row and column.
-// K6b and K6c run steps 2 alone, K6c from the last panel up and with U's
-// columns as coefficients.  Their right-hand-side columns are independent,
-// so a second grid axis gives each block kKT of them.
+// What bounds them on this card: latency and shared memory, not device
+// memory or operations.  At (n, k) = (256, 413) K6a's work is 5.6 MFLOP of
+// Cholesky and 27 MFLOP of solve (0.5 us at the float32 rate) and 1.4 MB of
+// traffic (0.4 us at 3.35 TB/s), but the factorization is a chain of n
+// dependent pivots, each behind a barrier, on one SM per matrix; an
+// L2-resident trailing matrix adds a round trip per panel, and a
+// right-hand side walked tile by tile on that SM adds its tiles' time.
 //
-// What bounds it on this card: latency, not bytes or operations.  At n = 256
-// the work is 5.6 MFLOP of Cholesky (0.08 us at the float32 rate) and 1.4 MB
-// of traffic (0.4 us at 3.35 TB/s), but the factorization is a chain of n
-// dependent pivots with a block-wide barrier each, and every panel adds
-// three more barriers and a pass over the L2-resident trailing matrix.  The
-// design keeps each pivot step in shared memory (no device-memory access
-// between the per-column barriers), keeps all 512 threads busy on the
-// updates, and keeps kBatch rows' loads in flight per thread so the passes
-// over device memory are not a chain of L2 round trips; it does not remove
-// the pivot chain.  A batch of matrices (the next ROADMAP item) fills the
-// other SMs.
+// Design of K6a (chol_solve_kernel) for n up to about 280, every EEG shape:
+//   * the matrix's upper triangle (n (n + 1) / 2 floats and a little
+//     padding, 133 KB at n = 256) and one 64-column tile of the right-hand
+//     side (65.5 KB) stay in shared memory, so nothing touches device
+//     memory between the load and the store;
+//   * the grid is (1, ceil(k / 64), batch): each block factors its matrix
+//     redundantly and solves its own tile, so the tiles run side by side on
+//     as many SMs (the pivot chain is latency: repeating it costs no time
+//     while SMs are free); block y = 0 writes U, logdet and info; k = 0 runs
+//     one block;
+//   * the right-hand side is treated as more columns of the matrix, W = U^-T
+//     B being the upper-right block of the factor of [S B; B^T *].  Per
+//     panel of kNB = 16 rows: (1) one warp factors the 16 x 16 diagonal
+//     block, a lane per column held in registers, the pivot rows passed by
+//     shuffles; (2) every thread takes one later column of the panel's
+//     rows (matrix or right-hand side) through the 16-step forward
+//     substitution in registers; (3) the rank-16 update of the trailing
+//     triangle and of the right-hand side's later rows, a warp per 32 x 64
+//     tile, each thread accumulating an 8 x 8 register tile from 16-byte
+//     shared loads (4 loads per 64 FMAs; the triangle's rows start on
+//     16-byte boundaries for it).  Three block barriers per panel instead
+//     of one per pivot.
+// Above that (n <= 512), where the triangle does not fit, chol_solve_l2_kernel:
+// one block per matrix, the trailing matrix in device memory (L2), 16-row
+// panels in shared memory, the right-hand side in 64-column tiles.
+// K6b and K6c run the L2 design's solve step alone (solve_panel), K6c from
+// the last panel up and with U's columns as coefficients; their
+// right-hand-side columns are independent, so a second grid axis gives each
+// block kKT of them.
 //
 // Plain C interface (built with nvcc, loaded with ctypes): each entry
 // returns cudaGetLastError() after the launch.
@@ -66,6 +72,10 @@ constexpr int kNMax = 512;
 constexpr int kGroups = kThreads / kKT;  // row groups of an update
 constexpr int kBatch = 8;                // rows whose loads are in flight at once
 constexpr float kTiny = 1e-30f;
+// Dynamic shared memory a block may hold: 227 KB less chol_solve_kernel's
+// static arrays.
+constexpr size_t kSmemMax = 232448 - 6144;
+constexpr int kRThreads = 256;  // threads of chol_solve_kernel
 
 // The update of later rows by one panel, for the columns [c0, c0 + cw):
 //     X[i, c] -= sum_q Ps[q * n + i] * x_q(c),  x_q(c) = xs[q * xld + c - c0],
@@ -163,9 +173,9 @@ __device__ __forceinline__ void solve_panel(const float* __restrict__ Ps,
 }
 
 __global__ void __launch_bounds__(kThreads)
-chol_solve_kernel(const float* __restrict__ S, const float* __restrict__ B, int n, int k,
-                  float* __restrict__ U, float* __restrict__ W, float* __restrict__ logdet,
-                  int* __restrict__ info) {
+chol_solve_l2_kernel(const float* __restrict__ S, const float* __restrict__ B, int n, int k,
+                     float* __restrict__ U, float* __restrict__ W, float* __restrict__ logdet,
+                     int* __restrict__ info) {
   extern __shared__ float smem[];
   float* P = smem;             // kNB x n: the panel's residual rows
   float* Up = P + kNB * n;     // kNB x n: the panel's factor rows
@@ -234,6 +244,273 @@ chol_solve_kernel(const float* __restrict__ S, const float* __restrict__ B, int 
   }
 }
 
+// chol_solve_kernel's layout in shared memory.  Row i of the upper
+// triangle is stored from column 4 floor(i / 4), rows padded to a multiple
+// of 4 floats, so that every row starts on a 16-byte boundary and the
+// rank-16 update reads 4 neighbouring floats at once; element (i, l >= i)
+// sits at tri_base(i) + l.  Rows 4m .. 4m + 3 hold n4 - 4m floats each
+// (n4 = n rounded up to 4).  The right-hand-side tile follows, n rows of
+// kt4 floats (kt rounded up to 4).
+__host__ __device__ inline int tri_base(int i, int n4) {
+  const int m = i >> 2, r = i & 3;
+  return 4 * n4 * m - 8 * m * (m - 1) + r * (n4 - 4 * m) - 4 * m;
+}
+
+__host__ __device__ inline size_t tri_floats(int n) {
+  const int n4 = (n + 3) & ~3;
+  return static_cast<size_t>(tri_base(n, n4) + 4 * (n >> 2));  // the start of row n
+}
+
+__host__ __device__ inline size_t resident_smem(int n, int kt) {
+  return sizeof(float) * (tri_floats(n) + static_cast<size_t>(n) * ((kt + 3) & ~3));
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// K6a with the matrix resident in shared memory (see the design note).
+__global__ void __launch_bounds__(kRThreads)
+chol_solve_kernel(const float* __restrict__ S, const float* __restrict__ B, int n, int k,
+                  float* __restrict__ U, float* __restrict__ W, float* __restrict__ logdet,
+                  int* __restrict__ info) {
+  extern __shared__ float4 smem4[];
+  __shared__ float invd[kNB];
+  __shared__ float Dg[kNB][kNB + 1];  // the panel's diagonal block of U
+  __shared__ double ldv[kNMax];       // the clamped diagonal of U, then its logs
+  const int c0 = blockIdx.y * kKT;
+  const int kt = min(kKT, k - c0);  // 0 when k = 0
+  const int kt4 = (kt + 3) & ~3, n4 = (n + 3) & ~3;
+  float* A = reinterpret_cast<float*>(smem4);
+  float* X = A + tri_floats(n);  // X[i * kt4 + c]
+
+  const long long b = blockIdx.z;
+  S += b * n * n;
+  U += b * n * n;
+  B += b * n * k;
+  W += b * n * k;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kRThreads / 32;
+  constexpr int kInFlight = 8;  // loads each thread keeps in flight
+  constexpr unsigned kAll = 0xffffffffu;
+
+  // S's upper triangle, in 16-byte loads where rows allow them
+  if (n % 4 == 0 && reinterpret_cast<size_t>(S) % 16 == 0) {
+    const float4* S4 = reinterpret_cast<const float4*>(S);
+    const int nv = n * n / 4;
+    for (int v0 = tid; v0 < nv; v0 += kRThreads * kInFlight) {
+      float4 q[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u)
+        if (v0 + u * kRThreads < nv) q[u] = S4[v0 + u * kRThreads];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const int v = v0 + u * kRThreads;
+        if (v < nv) {
+          const int i = 4 * v / n, l = 4 * v % n;
+          const float e[4] = {q[u].x, q[u].y, q[u].z, q[u].w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (l + c >= i) A[tri_base(i, n4) + l + c] = e[c];
+        }
+      }
+    }
+  } else {
+    for (int e0 = tid; e0 < n * n; e0 += kRThreads * kInFlight) {
+      float q[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u)
+        if (e0 + u * kRThreads < n * n) q[u] = S[e0 + u * kRThreads];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const int e = e0 + u * kRThreads, i = e / n, l = e % n;
+        if (e < n * n && l >= i) A[tri_base(i, n4) + l] = q[u];
+      }
+    }
+  }
+  for (int e0 = tid; e0 < n * kt; e0 += kRThreads * kInFlight) {
+    float q[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int e = e0 + u * kRThreads;
+      if (e < n * kt) q[u] = B[static_cast<long long>(e / kt) * k + c0 + e % kt];
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int e = e0 + u * kRThreads;
+      if (e < n * kt) X[(e / kt) * kt4 + e % kt] = q[u];
+    }
+  }
+  __syncthreads();
+
+  int bad = 0;  // warp 0
+  for (int r0 = 0; r0 < n; r0 += kNB) {
+    const int nbp = min(kNB, n - r0);
+    const int t0 = r0 + nbp, w = n - t0;
+
+    // 1. the diagonal block, one warp: lane l holds column r0 + l in
+    //    registers, shifted up one row per pivot; each pivot is passed on
+    //    by one shuffle from the lane that owns it, the row of U by
+    //    shuffles off that chain.
+    if (warp == 0) {
+      float col[kNB];  // col[i]: element (r0 + jj + i, r0 + lane) at pivot jj
+#pragma unroll
+      for (int ii = 0; ii < kNB; ++ii)
+        col[ii] = (lane < nbp && ii <= lane) ? A[tri_base(r0 + ii, n4) + r0 + lane] : 0.0f;
+      float my_inv = 0.0f, my_pivot = 1.0f;  // lane l's own pivot, l < nbp
+      float pivot = __shfl_sync(kAll, col[0], 0);
+#pragma unroll 1
+      for (int jj = 0; jj < nbp; ++jj) {
+        const float inv = rsqrtf(fmaxf(pivot, kTiny));
+        if (lane == jj) {
+          my_inv = inv;
+          my_pivot = pivot;
+        }
+        const float u = col[0] * inv;  // U(r0 + jj, r0 + lane) for lane >= jj
+        if (lane >= jj && lane < nbp) {
+          A[tri_base(r0 + jj, n4) + r0 + lane] = u;
+          Dg[jj][lane] = u;
+        }
+        // lane jj + 1's own update of its diagonal: the next pivot
+        pivot = __shfl_sync(kAll, __fmaf_rn(-u, u, col[1]), jj + 1);
+#pragma unroll
+        for (int i = 1; i < kNB; ++i) {
+          const float cf = __shfl_sync(kAll, u, jj + i);  // U(r0 + jj, r0 + jj + i)
+          if (jj + i < nbp && lane >= jj + i) col[i] = __fmaf_rn(-cf, u, col[i]);
+        }
+#pragma unroll
+        for (int i = 0; i + 1 < kNB; ++i) col[i] = col[i + 1];
+        col[kNB - 1] = 0.0f;
+      }
+      const unsigned nonpos = __ballot_sync(kAll, lane < nbp && !(my_pivot > 0.0f));
+      if (bad == 0 && nonpos != 0) bad = r0 + __ffs(nonpos);
+      if (lane < nbp) {
+        invd[lane] = my_inv;
+        ldv[r0 + lane] = static_cast<double>(fmaxf(my_pivot * my_inv, kTiny));
+      }
+    }
+    __syncthreads();
+
+    // 2. the panel's rows in the later columns (t0 .. n - 1) and in the
+    //    right-hand side: a forward substitution per column, in registers
+    for (int cidx = tid; cidx < w + kt; cidx += kRThreads) {
+      const bool rhs = cidx >= w;
+      float* e = rhs ? X + r0 * kt4 + cidx - w : A + t0 + cidx;
+      float s[kNB];
+#pragma unroll
+      for (int jj = 0; jj < kNB; ++jj)
+        if (jj < nbp) s[jj] = rhs ? e[jj * kt4] : e[tri_base(r0 + jj, n4)];
+#pragma unroll
+      for (int q = 0; q < kNB; ++q) {
+        if (q < nbp) {
+          const float x = s[q] * invd[q];
+          s[q] = x;
+#pragma unroll
+          for (int jj = q + 1; jj < kNB; ++jj)
+            if (jj < nbp) s[jj] -= Dg[q][jj] * x;
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kNB; ++jj) {
+        if (jj < nbp) {
+          if (rhs)
+            e[jj * kt4] = s[jj];
+          else
+            e[tri_base(r0 + jj, n4)] = s[jj];
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. rank-nbp update of the trailing triangle and of the right-hand
+    //    side's rows t0 .. n - 1: a warp per 32 x 64 tile, lane (ty, tx) on
+    //    rows i0 .. i0 + 7 and columns lc .. lc + 3 and lc + 32 .. lc + 35,
+    //    every operand read as 16 bytes (values past the edge come from the
+    //    padding or the next row and are never stored), the tile read and
+    //    written back as 16 bytes where it lies inside the triangle.  Shared
+    //    memory's bandwidth is the limit here: 16 loads per 64 FMAs.  Only
+    //    tiles that reach the upper triangle are dealt out: column group cg
+    //    of the matrix has min(nrg, 2 cg + 2) of them, then come the
+    //    right-hand side's nrg.
+    const int tx = lane & 7, ty = lane >> 3;
+    const int nrg = (w + 31) / 32, ncm = (w + 63) / 64;
+    int ntiles = kt > 0 ? nrg : 0;
+    for (int cg = 0; cg < ncm; ++cg) ntiles += min(nrg, 2 * cg + 2);
+    for (int tile = warp; tile < ntiles; tile += kWarps) {
+      int rg = tile, cg = 0;
+      while (cg < ncm && rg >= min(nrg, 2 * cg + 2)) rg -= min(nrg, 2 * cg++ + 2);
+      const bool rhs = cg == ncm;
+      const int i0 = t0 + 32 * rg + 8 * ty;
+      const int lc = (rhs ? 0 : t0 + 64 * cg) + 4 * tx;
+      const int cap = rhs ? kt4 : n4;  // columns a row holds
+      const bool a_lo = i0 + 4 <= n4, a_hi = i0 + 8 <= n4;
+      const bool b_lo = lc + 4 <= cap, b_hi = lc + 36 <= cap;
+      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float acc[8][8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+#pragma unroll 2
+      for (int q = 0; q < nbp; ++q) {
+        const float* urow = A + tri_base(r0 + q, n4);
+        const float* brow = rhs ? X + (r0 + q) * kt4 : urow;
+        const float4 alo = a_lo ? lds4(urow + i0) : zero;
+        const float4 ahi = a_hi ? lds4(urow + i0 + 4) : zero;
+        const float4 blo = b_lo ? lds4(brow + lc) : zero;
+        const float4 bhi = b_hi ? lds4(brow + lc + 32) : zero;
+        const float a[8] = {alo.x, alo.y, alo.z, alo.w, ahi.x, ahi.y, ahi.z, ahi.w};
+        const float bv[8] = {blo.x, blo.y, blo.z, blo.w, bhi.x, bhi.y, bhi.z, bhi.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] += a[r] * bv[c];
+      }
+      const int lim = rhs ? kt : n;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int i = i0 + r;
+        if (i >= n) continue;
+        float* row = rhs ? X + i * kt4 : A + tri_base(i, n4);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int l = lc + 32 * h;
+          if (l + 3 < lim && (rhs || l >= i)) {
+            float4 v = lds4(row + l);
+            v.x -= acc[r][4 * h];
+            v.y -= acc[r][4 * h + 1];
+            v.z -= acc[r][4 * h + 2];
+            v.w -= acc[r][4 * h + 3];
+            *reinterpret_cast<float4*>(row + l) = v;
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (l + c < lim && (rhs || l + c >= i)) row[l + c] -= acc[r][4 * h + c];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = warp; i < n; i += kWarps) {
+    if (blockIdx.y == 0)
+      for (int l = lane; l < n; l += 32)
+        U[static_cast<long long>(i) * n + l] = l >= i ? A[tri_base(i, n4) + l] : 0.0f;
+    for (int c = lane; c < kt; c += 32) W[static_cast<long long>(i) * k + c0 + c] = X[i * kt4 + c];
+  }
+  if (blockIdx.y == 0) {
+    // logdet: the logs in parallel, their sum in row order
+    for (int i = tid; i < n; i += kRThreads) ldv[i] = log(ldv[i]);
+    __syncthreads();
+    if (tid == 0) {
+      double ld = 0.0;
+      for (int i = 0; i < n; ++i) ld += ldv[i];
+      logdet[b] = static_cast<float>(2.0 * ld);
+      info[b] = bad;
+    }
+  }
+}
+
 template <bool kForward>
 __global__ void __launch_bounds__(kThreads)
 tri_kernel(const float* __restrict__ U, const float* __restrict__ B, int n, int k,
@@ -289,15 +566,31 @@ extern "C" int dense_chol_solve(const void* S, const void* B, int n, int k, int 
                                 void* W, void* logdet, void* info, void* stream) {
   if (n < 1 || n > kNMax || k < 0 || batch < 1 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const float* s_ = static_cast<const float*>(S);
+  const float* b_ = static_cast<const float*>(B);
+  float* u_ = static_cast<float*>(U);
+  float* w_ = static_cast<float*>(W);
+  float* ld_ = static_cast<float*>(logdet);
+  int* info_ = static_cast<int*>(info);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = (k + kKT - 1) / kKT;
+  const size_t resident = resident_smem(n, min(k, kKT));
+  if (resident <= kSmemMax && tiles <= 65535) {
+    cudaError_t e = cudaFuncSetAttribute(chol_solve_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(resident));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    chol_solve_kernel<<<dim3(1, tiles > 0 ? tiles : 1, batch), kRThreads, resident, st>>>(
+        s_, b_, n, k, u_, w_, ld_, info_);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = sizeof(float) * (2 * kNB * n + kNB * kKT);
-  cudaError_t e = cudaFuncSetAttribute(chol_solve_kernel,
+  cudaError_t e = cudaFuncSetAttribute(chol_solve_l2_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  chol_solve_kernel<<<dim3(1, 1, batch), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(S), static_cast<const float*>(B), n, k,
-      static_cast<float*>(U), static_cast<float*>(W), static_cast<float*>(logdet),
-      static_cast<int*>(info));
+  chol_solve_l2_kernel<<<dim3(1, 1, batch), kThreads, smem, st>>>(s_, b_, n, k, u_, w_, ld_,
+                                                                  info_);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,7 +35,7 @@ _LL = ctypes.c_longlong
 _ARGTYPES = {
     "kalman_phase1": [_I, _P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P],
     "kalman_phase3": [_I, _P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "whiten_columns": [_I, _P, _P, _LL, _I, _P, _P, _P, _P],
+    "whiten_columns": [_I, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P],
     "suffix_reduce": [_I, _P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P],
     "suffix_replay": [_I, _P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P],
     "dense_chol_solve": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],

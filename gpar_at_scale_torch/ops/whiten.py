@@ -6,15 +6,18 @@ pallas_whiten_columns`` and of the forward half of
 gain recursion of the filter does not depend on the observations, so K1/K2
 run it once with y = 0 (``ops/kalman.py``) and hand over one gain row per
 step, ``[S, log S, mask, K (d), A[0, :] (d), M = (I - K H) A (d*d)]``.  K3
-(``csrc/whiten.cu``) then runs only the affine mean recursion, one thread per
-column:
+(``csrc/whiten.cu``) then runs only the affine mean recursion per column:
 
     v_k = y_k - A_k[0, :] . m_{k-1},   alpha_k = v_k / sqrt(S_k)
     m_k = M_k m_{k-1} + K_k y_k,       ll -= (log 2 pi + log S_k + alpha_k^2) / 2
 
-``whiten_sweep`` is K3's wrapper.  Its plain version (``whiten_sweep_plain``)
-computes the same recursion as a blocked affine scan over time, vectorised
-over blocks and columns.  Asked for them (the training path), both also
+The recursion is affine once the gains are fixed, so both K3 and its plain
+version (``whiten_sweep_plain``) run it as a blocked affine scan over time:
+compose each time block's maps, take an exclusive prefix over the block
+maps, replay each block from the mean entering it.  ``whiten_sweep`` is K3's
+wrapper; both take the blocking (nb blocks of T steps, ``num_blocks_for``
+by default), so the kernel and its plain version can be held to each other
+on the same blocking.  Asked for them (the training path), both also
 return every column's filtered mean m_k (N, d, B), which the gradient of
 ``whiten_gram`` needs (``ops/grad.py``).
 
@@ -52,16 +55,27 @@ def gain_rows(A, S, K):
     ).contiguous()
 
 
-def whiten_sweep_plain(gains, Y, d, want_means=False):
-    """K3's plain version: (ll (B,), alpha (N, B)) by a blocked affine scan,
-    and the filtered means m (N, d, B) if ``want_means``.
+def _blocking(n, nb=None, T=None):
+    """(nb, T): ``num_blocks_for(n)`` blocks of ceil(n / nb) steps unless
+    given; nb T must cover n."""
+    nb = num_blocks_for(n) if nb is None else int(nb)
+    T = -(-n // nb) if T is None else int(T)
+    if nb < 1 or T < 1 or nb * T < n:
+        raise ValueError(f"whiten_sweep: {nb} blocks of {T} steps do not tile {n} steps")
+    return nb, T
+
+
+def whiten_sweep_plain(gains, Y, d, want_means=False, nb=None, T=None):
+    """K3's plain version: (ll (B,), alpha (N, B)) by a blocked affine scan
+    over nb blocks of T steps, and the filtered means m (N, d, B) if
+    ``want_means``.
 
     Phase 1 composes each block's affine maps m -> M m + K y; an exclusive
     prefix over the block maps gives the mean entering every block; phase 3
-    replays each block and emits alpha and ll."""
+    replays each block and emits alpha, the means and each block's ll,
+    summed over blocks in float64."""
     n, B = Y.shape
-    nb = num_blocks_for(n)
-    T = -(-n // nb)
+    nb, T = _blocking(n, nb, T)
     pad_row = torch.zeros(gains.shape[1], dtype=gains.dtype, device=gains.device)
     pad_row[0] = 1.0  # padded rows: S = 1, mask = 0 (as the JAX wrapper pads)
     g = _pad_block(gains, nb, T, pad_row)  # (T, nb, G)
@@ -102,21 +116,26 @@ def whiten_sweep_plain(gains, Y, d, want_means=False):
     return out + (_unblock(means, n),) if want_means else out
 
 
-def whiten_sweep(gains, Y, d: int, want_means: bool = False):
+def whiten_sweep(gains, Y, d: int, want_means: bool = False, nb=None, T=None):
     """K3: (ll (B,), alpha (N, B)) of the columns of Y (N, B) given the gain
     rows (N, 3 + 2d + d*d), and the filtered means m (N, d, B) if
-    ``want_means``.  Launches on CUDA tensors, runs the plain version on CPU
-    tensors."""
+    ``want_means``, over nb time blocks of T steps (``num_blocks_for(N)``
+    by default).  Launches on CUDA tensors (one call, four CUDA launches:
+    ``csrc/whiten.cu``), runs the plain version on CPU tensors."""
     require_f32("whiten_sweep", gains, Y)
     n, B = Y.shape
     if not 1 <= d <= 3 or gains.shape != (n, 3 + 2 * d + d * d):
         raise ValueError(f"whiten_sweep: gains {tuple(gains.shape)} do not fit d={d}, N={n}")
+    nb, T = _blocking(n, nb, T)
     if not Y.is_cuda:
-        return whiten_sweep_plain(gains, Y, d, want_means)
-    alpha = torch.empty_like(Y)
-    ll = torch.empty(B, dtype=Y.dtype, device=Y.device)
-    m = torch.empty((n, d, B), dtype=Y.dtype, device=Y.device) if want_means else None
-    K3(d, ptr(gains), ptr(Y), n, B, ptr(alpha), ptr(ll), ptr(m))
+        return whiten_sweep_plain(gains, Y, d, want_means, nb, T)
+    new = lambda *s: torch.empty(s, dtype=Y.dtype, device=Y.device)  # noqa: E731
+    alpha, ll = new(n, B), new(B)
+    m = new(n, d, B) if want_means else None
+    # ll partials (at most nb, B) in float64, block maps Mt (nb, d, d),
+    # offsets and entering means (B, nb, d) each
+    scratch = new(nb * (d * d + 2 * B * d + 2 * B))
+    K3(d, ptr(gains), ptr(Y), n, B, nb, T, ptr(alpha), ptr(ll), ptr(m), ptr(scratch))
     return (ll, alpha, m) if want_means else (ll, alpha)
 
 

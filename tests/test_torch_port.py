@@ -375,7 +375,11 @@ def test_decorrelate_blocked_matches_pallas(name, n, num_blocks, rng):
     _close(mo[4], P, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("name,n,B", [("Matern52", 1500, 7), ("Matern12", 700, 3)])
+@pytest.mark.parametrize("name,n,B", [
+    ("Matern52", 1500, 7),
+    ("Matern12", 700, 3),
+    ("Matern52", 333, 33),  # the main path's B = M + 1; 20 blocks of 17 steps, the last ragged
+])
 def test_whiten_columns_matches_pallas(name, n, B, rng):
     lj, lt = _f32_lgssm(rng, name, n)
     Y = rng.normal(size=(n, B))
@@ -401,6 +405,30 @@ def test_whiten_columns_matches_pallas(name, n, B, rng):
     assert m.shape == ref.m.shape == (n, l64.dim, B)
     for got, want in ((e, ref.v), (S, ref.S), (m, ref.m), (P, ref.P)):
         _close(got, _np(want), rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def test_whiten_sweep_plain_blocking(rng):
+    """K3's plain version at an explicit blocking (7 blocks of 48 steps,
+    the last ragged) against the same function at ``num_blocks_for(n)``
+    (20 blocks of 17): the blocking only re-associates the float32
+    recursion.  Measured on a CPU: alpha within 1.5e-7 and the means within
+    5.4e-7 of their largest values, ll within 8.7e-8 relative; held to
+    2e-6."""
+    n, B = 333, 33
+    _, lt = _f32_lgssm(rng, "Matern52", n)
+    A, _, _, _ = tops_kalman._f32_inputs(lt, torch.zeros(n))
+    _, _, _, S, K, _, _ = tops_kalman.decorrelate_blocked(lt, torch.zeros(n), return_full=True)
+    gains = tops_whiten.gain_rows(A, S, K)
+    Y = _t(rng.normal(size=(n, B)), torch.float32)
+    assert tops_kalman.num_blocks_for(n) == 20
+    ll, alpha, m = tops_whiten.whiten_sweep_plain(gains, Y, 3, want_means=True)
+    ll7, alpha7, m7 = tops_whiten.whiten_sweep(gains, Y, 3, want_means=True, nb=7, T=48)
+    assert alpha7.shape == (n, B) and m7.shape == (n, 3, B)
+    _close(ll7, _np(ll), rtol=2e-6)
+    for got, want in ((alpha7, alpha), (m7, m)):
+        _close(got, _np(want), rtol=0, atol=2e-6 * float(want.abs().max()))
+    with pytest.raises(ValueError, match="do not tile"):
+        tops_whiten.whiten_sweep(gains, Y, 3, nb=7, T=47)
 
 
 def test_sum_kernel_and_gradients_raise():
