@@ -13,9 +13,9 @@ Phases, each of which fails the run:
    versions on the card, at the main path's shapes (d = 3, N steps), and
    time both with CUDA events (a kernel slower than its plain version is
    flagged, not failed); the device kernels one K3 sweep runs, with their
-   times; K3 and K6a at small edge shapes (d = 1, 2, masked steps, column
+   times; K3 and K6a-c at edge shapes (d = 1, 2, masked steps, column
    tiles, padding-only blocks; several right-hand-side tiles, a batch, the
-   large-n branch); K6a-c as below;
+   large-n branch; K6b/K6c from n = 1 to 512); K6a-c as below;
 3. serving -- make the 16-output chain data from the seed
    (``data/chain.py``), condition the chain on fixed log-parameters drawn
    from the seed with ``fit_gpar(..., filter_impl="pallas",
@@ -53,8 +53,11 @@ Phase 2 also holds K6a/K6b/K6c against their plain versions at the EEG
 shapes (K6a at 156 x 156 with 157 columns and 256 x 256 with 413, and
 each with no right-hand side, the factorization alone; K6b and K6c at
 156 x 156 with 256 and 157 columns), timed beside the ``torch.linalg``
-call that computes the same function, and the VJPs through the kernels
-against the same VJPs through the plain versions.
+call that computes the same function by CUDA events and by the profiler's
+device time per call (a kernel slower than that call by either is
+flagged), with an empty launch as the floor, and the VJPs through the
+kernels against the same VJPs through the plain versions.  Phase 9 also
+counts the K6 launches and device copies of each traced pipeline.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -210,19 +213,23 @@ def _rel_err(got, want, names):
 
 
 def _record(records, failures, kernel, key, got, want, names, ms, plain_ms, nbytes, flops,
-            label=None, library_ms=None):
+            label=None, library_ms=None, device=None):
     """Print one kernel check, fail the run if it disagrees with its plain
-    version beyond TOL, and keep its record for the ``kernels`` line."""
+    version beyond TOL, and keep its record for the ``kernels`` line.
+    ``device`` is (kernel, library) device ms per call, where measured: a
+    kernel slower than its library call by either clock is flagged."""
     tol_key = key.split("@")[0]
     abs_err, rel_err, per = _rel_err(got, want, names.split())
     bound, by = _bound_ms(nbytes, flops)
     ok_ = math.isfinite(rel_err) and rel_err <= TOL[tol_key]
     name = kernel.name + (f" ({label})" if label else "")
     lib = "" if library_ms is None else f"library {library_ms:.4f} ms, "
+    dev = "" if device is None else (f"device time per call: kernel {device[0]:.4f} ms, "
+                                     f"library {device[1]:.4f} ms; ")
     _log(
         f"[kernels] {name}: max_abs_err={abs_err:.3e} rel={rel_err:.3e} "
         f"(tol {TOL[tol_key]:.0e}) {'ok' if ok_ else 'FAIL'}; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, {lib}bound {bound:.4f} ms ({by}); "
+        f"plain {plain_ms:.4f} ms, {lib}bound {bound:.4f} ms ({by}); {dev}"
         + " ".join(f"{k}={v:.1e}" for k, v in per.items())
     )
     if not ok_:
@@ -230,6 +237,11 @@ def _record(records, failures, kernel, key, got, want, names, ms, plain_ms, nbyt
     if ms > plain_ms:
         _log(f"[kernels] FLAG: {name} is {ms / plain_ms:.2f}x slower than its "
              f"plain version (ROADMAP, performance queue)")
+    for clock, mine, theirs in (("events", ms, library_ms),
+                                ("device time", *(device or (None, None)))):
+        if theirs is not None and mine > theirs:
+            _log(f"[kernels] FLAG: {name} is {mine / theirs:.2f}x slower than its library "
+                 f"call ({clock})")
     records[key] = dict(
         name=kernel.name, route="cuda", source=kernel.source, replaces=kernel.replaces,
         launches=0, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
@@ -345,11 +357,12 @@ def check_kernels(t, Y, params, M, failures):
 
 
 def check_kernel_edges(failures):
-    """K3 and K6a against their plain versions at small shapes the main
-    paths do not reach: K3 at d = 1, 2, 3 with masked steps, one column,
-    several column tiles, a ragged last block and a block of padding only;
-    K6a with no, one and several right-hand-side tiles, a batch, and n past
-    the shared-memory bound (its L2-resident branch)."""
+    """K3 and K6a-c against their plain versions at shapes the main paths do
+    not reach: K3 at d = 1, 2, 3 with masked steps, one column, several
+    column tiles, a ragged last block and a block of padding only; K6a with
+    no, one and several right-hand-side tiles, a batch, and n past the
+    shared-memory bound (its L2-resident branch); K6b and K6c from n = 1 to
+    512 with one, several and ragged column tiles and a batch."""
     import numpy as np
     import torch
 
@@ -382,6 +395,16 @@ def check_kernel_edges(failures):
         worst[f"K6a n={n} k={k} batch={batch}"] = _rel_err(pick(got), pick(want), names.split())[1]
         if got[3].tolist() != want[3].tolist():
             failures.append(f"K6a info {got[3].tolist()} != plain {want[3].tolist()} at n={n}")
+    # K6b/K6c: one tile, several, ragged ones, a batch, n past 280
+    for n, k, batch in ((1, 1, 1), (13, 5, 1), (40, 70, 3), (156, 157, 1), (300, 130, 1),
+                        (512, 3, 1), (512, 600, 1)):
+        A = torch.as_tensor(rng.normal(size=(batch, n, n)), device=_DEV)
+        L = torch.linalg.cholesky(A @ A.transpose(-1, -2) + n * torch.eye(n, device=_DEV))
+        U = L.mT.to(f32).contiguous()
+        Bm = torch.as_tensor(rng.normal(size=(batch, n, k))).to(_DEV, f32)
+        for name, fn in (("K6b", dense.tri_ut), ("K6c", dense.tri_u)):
+            worst[f"{name} n={n} k={k} batch={batch}"] = _rel_err(
+                [fn(U, Bm)], [fn(U, Bm, plain=True)], ["X"])[1]
     _sync(_DEV)
     for name, rel in worst.items():
         ok_ = math.isfinite(rel) and rel <= TOL[name.split()[0]]
@@ -411,11 +434,21 @@ def _device_kernels(fn):
             if e.device_type == DeviceType.CUDA]
 
 
+def _device_ms(fn, reps=20):
+    """Device milliseconds per call of fn(): the device kernels and copies
+    of ``reps`` calls after one warm-up call (torch.profiler), summed, over
+    ``reps``.  Unlike ``_time_ms`` it does not count the host's time
+    between back-to-back calls of a short kernel."""
+    fn()
+    return sum(ms for _, _, ms in _device_kernels(lambda: [fn() for _ in range(reps)])) / reps
+
+
 def profile_phase(label, fn):
     """Run fn() once under torch.profiler and print the device's busy share
     (kernel time over wall time; one stream, so kernels do not overlap), the
     six kernels that take the most device time, the port's own kernels
-    below those, and the sum of the rest."""
+    below those, and the sum of the rest.  Returns every device kernel and
+    copy as (name, count, ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -441,6 +474,7 @@ def profile_phase(label, fn):
     rest = [e for e in ranked[6:] if e not in ours]
     _log(f"[profile] {label}:   {sum(e.self_device_time_total for e in rest) / 1e3:9.2f} ms  "
          f"in the {sum(e.count for e in rest)} launches of the {len(rest)} other device kernels")
+    return [(e.key, e.count, e.self_device_time_total / 1e3) for e in events]
 
 
 def seeded_params(P, seed):
@@ -847,7 +881,8 @@ def check_dense_kernels(ds, failures):
                _time_ms(lambda: dense.chol_solve(S, B), reps=20),
                _time_ms(lambda: dense.chol_solve(S, B, plain=True), reps=3),
                _nbytes(S, B, *got), _chol_flops(n, k), label=f"n={n} k={k}",
-               library_ms=_time_ms(library, reps=20))
+               library_ms=_time_ms(library, reps=20),
+               device=(_device_ms(lambda: dense.chol_solve(S, B)), _device_ms(library)))
         # the factorization alone (k = 0, as utils/psd.py calls it)
         empty = B[:, :0].contiguous()
         got0 = dense.chol_solve(S, empty)
@@ -857,7 +892,9 @@ def check_dense_kernels(ds, failures):
                _time_ms(lambda: dense.chol_solve(S, empty), reps=20),
                _time_ms(lambda: dense.chol_solve(S, empty, plain=True), reps=3),
                _nbytes(S, *got0), _chol_flops(n, 0), label=f"n={n} k=0",
-               library_ms=_time_ms(lambda: torch.linalg.cholesky_ex(S), reps=20))
+               library_ms=_time_ms(lambda: torch.linalg.cholesky_ex(S), reps=20),
+               device=(_device_ms(lambda: dense.chol_solve(S, empty)),
+                       _device_ms(lambda: torch.linalg.cholesky_ex(S))))
     U, L = m["U"], m["L"]
     for kern, fn, key, lib in (
         (dense.K6B, dense.tri_ut, "K6b", lambda B: torch.linalg.solve_triangular(L, B, upper=False)),
@@ -873,7 +910,12 @@ def check_dense_kernels(ds, failures):
                    _time_ms(lambda: fn(U, B), reps=20),
                    _time_ms(lambda: fn(U, B, plain=True), reps=3),
                    _nbytes(U, B, got), U.shape[0] ** 2 * k, label=f"n={U.shape[0]} k={k}",
-                   library_ms=_time_ms(lambda: lib(B), reps=20))
+                   library_ms=_time_ms(lambda: lib(B), reps=20),
+                   device=(_device_ms(lambda: fn(U, B)), _device_ms(lambda: lib(B))))
+    # the floor under a short kernel's time: an empty launch, timed the same ways
+    _log(f"[kernels] empty launch (torch.cuda._sleep(0)): events "
+         f"{_time_ms(lambda: torch.cuda._sleep(0), reps=20):.4f} ms, device time "
+         f"{_device_ms(lambda: torch.cuda._sleep(0)):.4f} ms per call")
 
     # the VJPs (ops/dense.py: CholSolve, TriUT, TriU) through the kernels
     # against the same algebra through the plain versions
@@ -1171,13 +1213,13 @@ def eeg_phase(failures):
     return on_launches
 
 
-def eeg_bench(failures, reps=5, requests=200):
-    """bench.py's pipeline on the card (its data, made with numpy): 50 Adam
-    steps of learning rate 5e-2 on the DTC bound through the dense
-    whitening, q(u), one predictive of 100 points; under "on" and "off",
-    in turns (on, off, off, on).  Prints the median seconds per pipeline
-    and per request (200 sequential requests) and one traced pipeline's
-    device busy share per mode."""
+def bench_pipeline():
+    """bench.py's pipeline on the card (its data, made with numpy): returns
+    (pipeline, predict).  ``pipeline()`` takes 50 Adam steps of learning
+    rate 5e-2 on the DTC bound through the dense whitening, then q(u) and
+    one predictive of 100 points, and returns (result, q(u), prediction);
+    ``predict(params, q(u))`` is one request.  The dense switch in force
+    when they run decides the path."""
     import numpy as np
     import torch
 
@@ -1221,6 +1263,20 @@ def eeg_bench(failures, reps=5, requests=200):
             pred = predict(res.params, qu)
         return res, qu, pred
 
+    return pipeline, predict
+
+
+def eeg_bench(failures, reps=5, requests=200):
+    """bench.py's pipeline (``bench_pipeline``) under "on" and "off", in
+    turns (on, off, off, on).  Prints the median seconds per pipeline and
+    per request (200 sequential requests) and one traced pipeline's device
+    busy share per mode, with the device copies it ran."""
+    import numpy as np
+    import torch
+
+    n_star = 100
+    pipeline, predict = bench_pipeline()
+
     def timed(fn):
         _sync(_DEV)
         t0 = time.perf_counter()
@@ -1246,7 +1302,11 @@ def eeg_bench(failures, reps=5, requests=200):
                     req_s[mode].append(timed(lambda: predict(res.params, qu))[0])
         for mode in ("on", "off"):
             _set_dense_mode(mode)
-            profile_phase(f"eeg-bench pipeline ({mode})", pipeline)
+            before = _dense_counts()
+            events = profile_phase(f"eeg-bench pipeline ({mode})", pipeline)
+            _log(f"[eeg-bench] traced pipeline ({mode}): K6a/K6b/K6c launches "
+                 f"{_minus(_dense_counts(), before)}; "
+                 f"{sum(c for k, c, _ in events if 'copy' in k.lower())} device copies")
     finally:
         _set_dense_mode("off")
     (r_on, p_on), (r_off, p_off) = last["on"], last["off"]

@@ -53,14 +53,32 @@
 // Above that (n <= 512), where the triangle does not fit, chol_solve_l2_kernel:
 // one block per matrix, the trailing matrix in device memory (L2), 16-row
 // panels in shared memory, the right-hand side in 64-column tiles.
-// K6b and K6c run the L2 design's solve step alone (solve_panel), K6c from
-// the last panel up and with U's columns as coefficients; their
-// right-hand-side columns are independent, so a second grid axis gives each
-// block kKT of them.
+//
+// Design of K6b and K6c (tri_kernel), one kernel for every n <= 512.  Their
+// work is n^2 k FLOP on 4 (n^2 / 2 + 2 n k) bytes, 0.3 MB at the EEG shapes:
+// the time is the latency of n / 16 dependent panels, not bandwidth.
+//   * a block owns a tile of kTriKT = 16 columns of one matrix's right-hand
+//     side on a (ceil(k / 16), batch) grid; the tile (n x 16 floats) is
+//     copied into shared memory once by cp.async and written back once at
+//     the end, so nothing touches device memory on X between panels;
+//   * the coefficients of panel p + 1 (16 pivots against every equation
+//     they reach) are copied by cp.async into the other half of a
+//     two-stage ring while panel p is solved: K6b's pivots are 16 rows of U
+//     (16-byte copies where rows allow them), K6c's a strip of 16 of its
+//     columns (4-byte copies, transposed on the way in);
+//   * per panel: (1) 16 threads take one column each through the 16-step
+//     substitution in registers, right-looking (each solved pivot at once
+//     subtracted from the panel's later ones), coefficients and
+//     right-hand side read from shared memory; (2) the rank-16 update of
+//     the tile's rows that the panel reaches, a 4 x 4 register tile per
+//     thread from 16-byte shared loads (a warp's coefficient and
+//     right-hand-side loads are one wavefront each).  Two block barriers
+//     per panel.  The reciprocals of the diagonal are taken once, up front.
 //
 // Plain C interface (built with nvcc, loaded with ctypes): each entry
 // returns cudaGetLastError() after the launch.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -118,14 +136,40 @@ __device__ __forceinline__ void update_rows(const float* __restrict__ Ps, int nb
   }
 }
 
-// Step 2 for one panel: solve the panel's kNB pivots in the right-hand side
-// X (n x k, row-major, columns [c_begin, c_end)), then update every later
-// equation.  Ps[q * n + j] is the coefficient of pivot q of the panel in
-// equation j; invd[q] the reciprocal of pivot q's diagonal.  Forward: the
-// pivots are rows r0 .. r0 + nbp - 1 and the later equations r0 + nbp .. n - 1;
-// backward: the same pivots, solved from the last, and the later equations
-// 0 .. r0 - 1.  Xs is a kNB x kKT scratch tile.  Ends with a barrier.
-template <bool kForward>
+// Step 1 of tri_kernel and of solve_panel, for one column: the panel's nbp
+// pivots, x_j = e[j * ldx], solved in place in registers, right-looking;
+// c[q * ldc + j] is the coefficient of pivot q in pivot j's equation, inv[j]
+// the reciprocal of pivot j's diagonal.  kFull (nbp = kNB) drops the guards on nbp, which
+// would otherwise cut the chain of dependent steps into branches.
+template <bool kForward, bool kFull>
+__device__ __forceinline__ void solve_pivots(float* e, int ldx, const float* __restrict__ c,
+                                             int ldc, const float* __restrict__ inv, int nbp) {
+  float s[kNB];
+#pragma unroll
+  for (int j = 0; j < kNB; ++j) s[j] = (kFull || j < nbp) ? e[j * ldx] : 0.0f;
+#pragma unroll
+  for (int i = 0; i < kNB; ++i) {
+    const int q = kForward ? i : kNB - 1 - i;
+    if (kFull || q < nbp) {
+      const float x = s[q] * inv[q];
+      s[q] = x;
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+        if ((kForward ? j > q : j < q) && (kFull || j < nbp)) s[j] -= c[q * ldc + j] * x;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kNB; ++j)
+    if (kFull || j < nbp) e[j * ldx] = s[j];
+}
+
+// Step 2 of chol_solve_l2_kernel for one panel: solve the panel's kNB
+// pivots (rows r0 .. r0 + nbp - 1) in the right-hand side X (n x k,
+// row-major, columns [c_begin, c_end)), then update every later row
+// r0 + nbp .. n - 1.  Ps[q * n + j] is the coefficient of pivot q of the
+// panel in equation j; invd[q] the reciprocal of pivot q's diagonal.  The
+// pivots are solved right-looking, as tri_kernel's are.  Xs is a kNB x kKT
+// scratch tile.  Ends with a barrier.
 __device__ __forceinline__ void solve_panel(const float* __restrict__ Ps,
                                             const float* __restrict__ invd, int r0, int nbp,
                                             int n, float* __restrict__ X, int k, int c_begin,
@@ -133,41 +177,15 @@ __device__ __forceinline__ void solve_panel(const float* __restrict__ Ps,
   for (int c0 = c_begin; c0 < c_end; c0 += kKT) {
     const int cw = min(kKT, c_end - c0);
     if (threadIdx.x < cw) {
-      const int c = c0 + threadIdx.x;
-      float x[kNB];
-      if (kForward) {
-#pragma unroll
-        for (int jj = 0; jj < kNB; ++jj) {
-          if (jj < nbp) {
-            float s = X[static_cast<long long>(r0 + jj) * k + c];
-#pragma unroll
-            for (int q = 0; q < jj; ++q) s -= Ps[q * n + r0 + jj] * x[q];
-            x[jj] = s * invd[jj];
-          }
-        }
-      } else {
-#pragma unroll
-        for (int jj = kNB - 1; jj >= 0; --jj) {
-          if (jj < nbp) {
-            float s = X[static_cast<long long>(r0 + jj) * k + c];
-#pragma unroll
-            for (int q = jj + 1; q < kNB; ++q)
-              if (q < nbp) s -= Ps[q * n + r0 + jj] * x[q];
-            x[jj] = s * invd[jj];
-          }
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < kNB; ++jj) {
-        if (jj < nbp) {
-          X[static_cast<long long>(r0 + jj) * k + c] = x[jj];
-          Xs[jj * kKT + threadIdx.x] = x[jj];
-        }
-      }
+      float* e = X + static_cast<long long>(r0) * k + c0 + threadIdx.x;
+      if (nbp == kNB)
+        solve_pivots<true, true>(e, k, Ps + r0, n, invd, kNB);
+      else
+        solve_pivots<true, false>(e, k, Ps + r0, n, invd, nbp);
+      for (int jj = 0; jj < nbp; ++jj) Xs[jj * kKT + threadIdx.x] = e[static_cast<long long>(jj) * k];
     }
     __syncthreads();
-    update_rows<false>(Ps, nbp, n, Xs, kKT, X, k, kForward ? r0 + nbp : 0, kForward ? n : r0,
-                       c0, cw);
+    update_rows<false>(Ps, nbp, n, Xs, kKT, X, k, r0 + nbp, n, c0, cw);
     __syncthreads();
   }
 }
@@ -230,7 +248,7 @@ chol_solve_l2_kernel(const float* __restrict__ S, const float* __restrict__ B, i
     }
 
     // 2. the panel's rows of W, and every later row
-    solve_panel<true>(Up, invd, r0, nbp, n, W, k, 0, k, Xs);
+    solve_panel(Up, invd, r0, nbp, n, W, k, 0, k, Xs);
 
     // 3. rank-nbp update of the trailing matrix's upper triangle
     const int t0 = r0 + nbp;
@@ -511,52 +529,177 @@ chol_solve_kernel(const float* __restrict__ S, const float* __restrict__ B, int 
   }
 }
 
+constexpr int kTriThreads = 256;  // threads of tri_kernel
+// Right-hand-side columns per tri_kernel block: the narrowest tile whose
+// rows the update's 4 x 4 register tiles read as 16 bytes, and the one that
+// spreads a matrix's columns over the most SMs (k = 157 over 10); 32 and 64
+// were slower at every shape swept (tools/k6bc_step_split.py).
+constexpr int kTriKT = 16;
+
+// tri_kernel's layout in shared memory, in floats: the right-hand-side
+// tile (n4 rows of kTriKT), two stages of kNB coefficient rows of tri_ld(n)
+// (rows 16-byte aligned; the stride is 4 more than a multiple of 32, so a
+// strip of 16 columns copied in transposed lands on 8 bank groups), and
+// the reciprocals of the diagonal.
+__host__ __device__ inline int tri_ld(int n) { return ((n + 31) & ~31) + 4; }
+
+__host__ __device__ inline size_t tri_smem(int n) {
+  const int n4 = (n + 3) & ~3;
+  return sizeof(float) * (static_cast<size_t>(n4) * kTriKT + 2 * kNB * tri_ld(n) + n4);
+}
+
+// K6b (kForward: X = U^-T B, pivots from the first row) and K6c (X = U^-1 B,
+// from the last), see the design note.  Stage element Ps[q * ld + j] is the
+// coefficient of the panel's pivot q in equation j: U[r0 + q, j] for K6b (a
+// row of U) and U[j, r0 + q] for K6c (a column).
 template <bool kForward>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTriThreads)
 tri_kernel(const float* __restrict__ U, const float* __restrict__ B, int n, int k,
            float* __restrict__ X) {
-  __shared__ float Ps[kNB * kNMax];
-  __shared__ float Xs[kNB * kKT];
-  __shared__ float invd[kNB];
+  extern __shared__ float4 smem4[];
+  constexpr int KT = kTriKT, CG = KT / 4;  // columns and 4-column groups of the tile
+  const int n4 = (n + 3) & ~3, ld = tri_ld(n);
+  float* Xt = reinterpret_cast<float*>(smem4);  // Xt[i * KT + c]
+  float* stage = Xt + n4 * KT;                  // two stages of kNB x ld
+  float* invd = stage + 2 * kNB * ld;
 
-  const long long b = blockIdx.z;
+  const long long b = blockIdx.y;
   U += b * n * n;
   B += b * n * k;
   X += b * n * k;
+  const int c0 = blockIdx.x * KT, kw = min(KT, k - c0);
   const int tid = threadIdx.x;
-  const int c_begin = blockIdx.y * kKT, c_end = min(k, c_begin + kKT);
-  const int cw = c_end - c_begin;
-  for (int idx = tid; idx < n * cw; idx += blockDim.x) {
-    const long long e = static_cast<long long>(idx / cw) * k + c_begin + idx % cw;
-    X[e] = B[e];
-  }
-  __syncthreads();
-
+  const bool vec_u = n % 4 == 0 && reinterpret_cast<size_t>(U) % 16 == 0;
+  const bool vec_b = k % 4 == 0 && reinterpret_cast<size_t>(B) % 16 == 0;
   const int npanels = (n + kNB - 1) / kNB;
-  for (int p = 0; p < npanels; ++p) {
-    int r0, nbp;
+
+  // panel p: pivots r0 .. r0 + nbp - 1; K6b's run up from the first row,
+  // K6c's down from the last, the ragged panel at the top
+  auto panel = [&](int p, int& r0, int& nbp) {
     if (kForward) {
       r0 = p * kNB;
       nbp = min(kNB, n - r0);
-      // pivot q is row r0 + q of U; its coefficient in equation j is U[r0 + q, j]
-      const int w = n - r0;
-      for (int idx = tid; idx < nbp * w; idx += blockDim.x) {
-        const int q = idx / w, j = r0 + idx % w;
-        Ps[q * n + j] = U[static_cast<long long>(r0 + q) * n + j];
-      }
     } else {
-      const int end = n - p * kNB;
-      r0 = max(0, end - kNB);
-      nbp = end - r0;
-      // pivot q is column r0 + q of U; its coefficient in equation j is U[j, r0 + q]
-      for (int idx = tid; idx < end * nbp; idx += blockDim.x) {
-        const int j = idx / nbp, q = idx % nbp;
-        Ps[q * n + j] = U[static_cast<long long>(j) * n + r0 + q];
+      const int e = n - p * kNB;
+      r0 = max(0, e - kNB);
+      nbp = e - r0;
+    }
+  };
+  // Copy panel p's coefficients into stage s: equations [jb, je), the ones
+  // the panel's pivots reach (K6b: r0 .. n - 1, K6c: 0 .. r0 + nbp - 1).
+  auto load_panel = [&](int p, int s) {
+    int r0, nbp;
+    panel(p, r0, nbp);
+    const int jb = kForward ? r0 : 0, je = kForward ? n : r0 + nbp;
+    float* Ps = stage + s * kNB * ld;
+    if (kForward) {  // pivot q's coefficients are U's row r0 + q
+      // (spread over every thread: copies queued on the warp that solves
+      // the pivots next hold it up)
+      if (vec_u) {  // jb and je are multiples of 4 here
+        const int w4 = (je - jb) / 4;
+        for (int idx = tid; idx < nbp * w4; idx += kTriThreads) {
+          const int q = idx / w4, j = jb + 4 * (idx - q * w4);
+          __pipeline_memcpy_async(Ps + q * ld + j, U + static_cast<long long>(r0 + q) * n + j, 16);
+        }
+      } else {
+        const int w = je - jb;
+        for (int idx = tid; idx < nbp * w; idx += kTriThreads) {
+          const int q = idx / w, j = jb + idx - q * w;
+          __pipeline_memcpy_async(Ps + q * ld + j, U + static_cast<long long>(r0 + q) * n + j, 4);
+        }
+      }
+    } else {  // they are U's column r0 + q: 16 floats of each row j, transposed
+      for (int idx = tid; idx < (je - jb) * kNB; idx += kTriThreads) {
+        const int j = jb + idx / kNB, q = idx % kNB;
+        if (q < nbp)
+          __pipeline_memcpy_async(Ps + q * ld + j, U + static_cast<long long>(j) * n + r0 + q, 4);
       }
     }
-    if (tid < nbp) invd[tid] = 1.0f / U[static_cast<long long>(r0 + tid) * n + r0 + tid];
+  };
+
+  // the tile (columns past k are zero) and panel 0, one commit group
+  if (vec_b) {
+    for (int idx = tid; idx < n * CG; idx += kTriThreads) {
+      const int i = idx / CG, c = 4 * (idx % CG);
+      float* dst = Xt + i * KT + c;
+      if (c < kw)
+        __pipeline_memcpy_async(dst, B + static_cast<long long>(i) * k + c0 + c, 16);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int idx = tid; idx < n * KT; idx += kTriThreads) {
+      const int i = idx / KT, c = idx % KT;
+      if (c < kw)
+        __pipeline_memcpy_async(Xt + idx, B + static_cast<long long>(i) * k + c0 + c, 4);
+      else
+        Xt[idx] = 0.0f;
+    }
+  }
+  load_panel(0, 0);
+  __pipeline_commit();
+  for (int j = tid; j < n; j += kTriThreads) invd[j] = 1.0f / U[static_cast<long long>(j) * n + j];
+
+  for (int p = 0; p < npanels; ++p) {
+    __pipeline_wait_prior(0);
+    __syncthreads();  // panel p is in, and the previous update is done
+    if (p + 1 < npanels) load_panel(p + 1, (p + 1) & 1);
+    __pipeline_commit();
+    int r0, nbp;
+    panel(p, r0, nbp);
+    const float* Ps = stage + (p & 1) * kNB * ld;
+
+    // 1. the panel's pivots, one column of the tile per thread
+    if (tid < KT) {
+      if (nbp == kNB)
+        solve_pivots<kForward, true>(Xt + r0 * KT + tid, KT, Ps + r0, ld, invd + r0, kNB);
+      else
+        solve_pivots<kForward, false>(Xt + r0 * KT + tid, KT, Ps + r0, ld, invd + r0, nbp);
+    }
     __syncthreads();
-    solve_panel<kForward>(Ps, invd, r0, nbp, n, X, k, c_begin, c_end, Xs);
+
+    // 2. rank-16 update of rows [lo, hi): thread t takes rows i0 .. i0 + 3
+    //    and columns 4 cg .. 4 cg + 3; rows past hi are computed from
+    //    padding and not stored.  Only the last panel can be ragged, and it
+    //    reaches no rows, so every update takes kNB pivots.
+    const int lo = kForward ? r0 + nbp : 0, hi = kForward ? n : r0;
+    const int ntiles = (hi - lo + 3) / 4 * CG;
+    for (int t = tid; t < ntiles; t += kTriThreads) {
+      const int cg = t % CG, i0 = lo + 4 * (t / CG);
+      float acc[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kNB; ++q) {
+        const float4 a4 = lds4(Ps + q * ld + i0);
+        const float4 b4 = lds4(Xt + (r0 + q) * KT + 4 * cg);
+        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] += a[r] * bv[c];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (i0 + r < hi) {
+          float4* row = reinterpret_cast<float4*>(Xt + (i0 + r) * KT + 4 * cg);
+          float4 v = *row;
+          v.x -= acc[r][0];
+          v.y -= acc[r][1];
+          v.z -= acc[r][2];
+          v.w -= acc[r][3];
+          *row = v;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < n * KT; idx += kTriThreads) {
+    const int i = idx / KT, c = idx % KT;
+    if (c < kw) X[static_cast<long long>(i) * k + c0 + c] = Xt[idx];
   }
 }
 
@@ -599,8 +742,14 @@ static int launch_tri(const void* U, const void* B, int n, int k, int batch, voi
                       void* stream) {
   if (n < 1 || n > kNMax || k < 1 || batch < 1 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(1, (k + kKT - 1) / kKT, batch);
-  tri_kernel<kForward><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = tri_smem(n);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        tri_kernel<kForward>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  tri_kernel<kForward><<<dim3((k + kTriKT - 1) / kTriKT, batch), kTriThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(U), static_cast<const float*>(B), n, k, static_cast<float*>(X));
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,8 @@ repeats the kernel's recursion, right-looking panel by panel:
 * ``tri_ut(U, B)`` -> ``U^-T B`` (forward substitution);
 * ``tri_u(U, B)`` -> ``U^-1 B`` (backward substitution).
 
-float32, ``n <= DENSE_N_MAX``; a leading batch axis is allowed (one CUDA
-block per matrix).  Each is differentiable through a
+float32, ``n <= DENSE_N_MAX``; a leading batch axis is allowed (on the
+kernels' grid).  Each is differentiable through a
 ``torch.autograd.Function`` whose backward is the JAX package's custom VJP,
 built from the same kernels.  A wrapper runs its plain version for tensors on
 the CPU, or when called with ``plain=True`` (the ``"interpret"`` mode of
@@ -50,17 +50,16 @@ def _check(name, A, B):
 
 
 def _solve_panel(Ps, invd, r0, nbp, X, forward):
-    """The kernel's step 2 on X (..., n, k) in place: the pivots r0 ..
-    r0 + nbp - 1, whose coefficient rows are Ps (..., nbp, n), then the
-    update of every later equation."""
-    k = X.shape[-1]
-    Xp = X.new_zeros(X.shape[:-2] + (nbp, k))
-    order = range(nbp) if forward else range(nbp - 1, -1, -1)
-    for jj in order:
-        done = slice(0, jj) if forward else slice(jj + 1, nbp)
-        coef = Ps[..., done, r0 + jj]  # (..., q)
-        s = X[..., r0 + jj, :] - (coef[..., None, :] @ Xp[..., done, :])[..., 0, :]
-        Xp[..., jj, :] = s * invd[..., jj, None]
+    """The kernels' step for one panel on X (..., n, k) in place: the pivots
+    r0 .. r0 + nbp - 1, whose coefficient rows are Ps (..., nbp, n), solved
+    right-looking (each solved pivot at once subtracted from the panel's
+    later ones), then the update of every later equation by their sum."""
+    Xp = X[..., r0:r0 + nbp, :].clone()
+    for q in range(nbp) if forward else range(nbp - 1, -1, -1):
+        Xp[..., q, :] *= invd[..., q, None]
+        later = slice(q + 1, nbp) if forward else slice(0, q)
+        coef = Ps[..., q, r0 + later.start:r0 + later.stop]  # (..., pivots after q)
+        Xp[..., later, :] -= coef[..., :, None] * Xp[..., q, None, :]
     X[..., r0:r0 + nbp, :] = Xp
     later = slice(r0 + nbp, None) if forward else slice(0, r0)
     X[..., later, :] -= Ps[..., :, later].transpose(-1, -2) @ Xp

@@ -960,13 +960,14 @@ def _spd32(rng, n):
     return (A @ A.T + n * np.eye(n)).astype(np.float32)
 
 
-@pytest.mark.parametrize("n,k", [(24, 5), (13, 7), (40, 1)])
+@pytest.mark.parametrize("n,k", [(24, 5), (13, 7), (40, 1), (33, 70)])
 def test_dense_plain_versions_match_pallas(n, k, rng):
     """chol_solve, tri_ut and tri_u's plain versions against the JAX
     kernels (interpret) on the same float32 inputs, with the JAX kernel
     tests' tolerances: U rtol = atol = 2e-5, W and X 3e-5, logdet rtol
-    1e-5 (n = 13 and 40 are not multiples of the TPU kernels' 8-row
-    panels, nor of the port's 16)."""
+    1e-5 (n = 13, 33 and 40 are not multiples of the TPU kernels' 8-row
+    panels, nor of the port's 16; k = 70 spans several of the triangular
+    kernels' column tiles)."""
     from gpar_at_scale_tpu.ops import pallas_dense as jpd
     from gpar_at_scale_torch.ops import dense as tdense
 

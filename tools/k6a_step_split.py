@@ -13,19 +13,20 @@ are wrong; only its time is read.  "none" leaves out all three steps (what
 is left: the loads, the stores, the barriers and the logdet).  It also
 prints the SM clock measured by a kernel spinning on clock64(), beside
 nvidia-smi's, so a slow step is not mistaken for a slow clock.  Needs a
-CUDA device and nvcc; writes its builds under build/k6a_split/.
+CUDA device and nvcc; writes its builds under build/k6a_step_split/.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+
+from tools.chip_timing import build_variants, event_ms, patch_source, print_clocks  # noqa: E402
 
 # Text of csrc/dense.cu around each step of chol_solve_kernel, and the guards
 # put around it.
@@ -35,17 +36,6 @@ _STEP1_END = ("        ldv[r0 + lane] = static_cast<double>(fmaxf(my_pivot * my_
 _STEP2_END = "    __syncthreads();\n\n    // 3. rank-nbp update"
 _STEP3_END = ("              if (l + c < lim && (rhs || l + c >= i)) row[l + c] -= acc[r][4 * h + c];\n"
               "          }\n        }\n      }\n    }\n    __syncthreads();\n  }\n")
-_SPIN = r'''
-__global__ void spin_kernel(long long cycles, long long* out) {
-  const long long t0 = clock64();
-  while (clock64() - t0 < cycles) {}
-  if (threadIdx.x == 0) out[0] = clock64() - t0;
-}
-extern "C" int spin(long long cycles, void* out, void* stream) {
-  spin_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(cycles, static_cast<long long*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-'''
 VARIANTS = {
     "full": [], "no step 1": ["-DSKIP1"], "no step 2": ["-DSKIP2"], "no step 3": ["-DSKIP3"],
     "step 3 alone": ["-DSKIP1", "-DSKIP2"], "none": ["-DSKIP1", "-DSKIP2", "-DSKIP3"],
@@ -54,20 +44,14 @@ VARIANTS = {
 
 def guarded_source() -> str:
     """csrc/dense.cu with #ifndef SKIPn around step n of chol_solve_kernel."""
-    s = (ROOT / "gpar_at_scale_torch" / "csrc" / "dense.cu").read_text()
-    edits = (
+    return patch_source("k6a_step_split", (
         (_STEP1_BEGIN, "#ifndef SKIP1\n" + _STEP1_BEGIN),
         (_STEP1_END, _STEP1_END.replace("    __syncthreads();\n",
                                         "#endif\n    __syncthreads();\n#ifndef SKIP2\n")),
         (_STEP2_END, "#endif\n" + _STEP2_END.replace("\n\n", "\n#ifndef SKIP3\n")),
         (_STEP3_END, _STEP3_END.replace("    __syncthreads();\n  }\n",
                                         "#endif\n    __syncthreads();\n  }\n")),
-    )
-    for old, new in edits:
-        if s.count(old) != 1:
-            raise SystemExit(f"k6a_step_split: csrc/dense.cu no longer has the marker {old!r}")
-        s = s.replace(old, new)
-    return s + _SPIN
+    ))
 
 
 def main(argv=None):
@@ -77,46 +61,14 @@ def main(argv=None):
 
     import torch
 
-    from gpar_at_scale_torch.ops.build import NVCC_FLAGS, _nvcc
-
     if not torch.cuda.is_available():
         print("k6a_step_split: no CUDA device is available", file=sys.stderr)
         return 2
-    out_dir = ROOT / "build" / "k6a_split"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = out_dir / "dense_split.cu"
-    src.write_text(guarded_source())
-    flags = [f for f in NVCC_FLAGS if f != "-Xptxas=-v"]
-    # a left-out step leaves variables unused: nvcc's warnings are expected
-    procs = {name: (subprocess.Popen([_nvcc(), *flags, *defs, "-o", str(out_dir / f"v{i}.so"),
-                                      str(src)], stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), out_dir / f"v{i}.so")
-             for i, (name, defs) in enumerate(VARIANTS.items())}
-    entries = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"k6a_step_split: nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(so)).dense_chol_solve
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-        fn.restype = ctypes.c_int
-        entries[name] = fn
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
-                          "--format=csv,noheader"], capture_output=True, text=True, check=False)
-    print(smi.stdout.strip() or "nvidia-smi: no output", flush=True)
+    argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+    libs = build_variants("k6a_step_split", guarded_source(), VARIANTS,
+                          {"dense_chol_solve": argtypes})
+    print_clocks(libs["full"])
     stream = torch.cuda.current_stream().cuda_stream
-    spin = ctypes.CDLL(str(procs["full"][1])).spin
-    spin.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
-    spin.restype = ctypes.c_int
-    out = torch.zeros(1, dtype=torch.int64, device="cuda")
-    for cycles in (10**6, 10**7):  # the first warms the card up
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        spin(cycles, out.data_ptr(), stream)
-        e1.record()
-        torch.cuda.synchronize()
-    print(f"SM clock from a spinning kernel: {cycles / e0.elapsed_time(e1) / 1e3:.0f} MHz", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for n, k in ((156, 0), (156, 157), (256, 0), (256, 413)):
@@ -127,22 +79,13 @@ def main(argv=None):
         ld = torch.empty(1, device="cuda")
         info = torch.empty(1, dtype=torch.int32, device="cuda")
         times = []
-        for name, fn in entries.items():
-            def call(fn=fn):
+        for name, lib in libs.items():
+            def call(fn=lib.dense_chol_solve):
                 rc = fn(S.data_ptr(), B.data_ptr() if k else None, n, k, 1, U.data_ptr(),
                         W.data_ptr() if k else None, ld.data_ptr(), info.data_ptr(), stream)
                 if rc != 0:
                     raise RuntimeError(f"dense_chol_solve failed with cudaError {rc}")
-            for _ in range(3):
-                call()
-            torch.cuda.synchronize()
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            for _ in range(args.reps):
-                call()
-            e1.record()
-            torch.cuda.synchronize()
-            times.append(f"{name} {e0.elapsed_time(e1) / args.reps:.4f}")
+            times.append(f"{name} {event_ms(call, args.reps):.4f}")
         print(f"K6a (n, k) = ({n}, {k}), ms: " + ", ".join(times), flush=True)
     return 0
 

@@ -25,14 +25,13 @@ The card's name and power limit are printed first.  Needs a CUDA device.
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(HERE))
+
+from tools.chip_timing import run_trees  # noqa: E402
 
 
 def time_tree(root: Path, reps: int, seed: int) -> dict:
@@ -102,37 +101,7 @@ def time_tree(root: Path, reps: int, seed: int) -> dict:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", action="append", default=None, help="a checkout (repeatable)")
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--one", default=None, help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
-
-    if args.one is not None:  # the child process of one tree
-        root = Path(args.one).resolve()
-        sys.path.insert(0, str(root))
-        import torch
-
-        if not torch.cuda.is_available():
-            print("time_k3_k6a: no CUDA device is available", file=sys.stderr)
-            return 2
-        print(json.dumps({"root": str(root), "ms": time_tree(root, args.reps, args.seed)}),
-              flush=True)
-        return 0
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=False)
-    print(smi.stdout.strip() or "nvidia-smi: no output", flush=True)
-    rc = 0
-    for root in args.root or [str(HERE)]:
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--one", root,
-             "--reps", str(args.reps), "--seed", str(args.seed)],
-            env=dict(os.environ, PYTHONPATH=str(Path(root).resolve())), check=False,
-        )
-        rc = rc or proc.returncode
-    return rc
+    return run_trees(__file__, time_tree, 20, __doc__.split("\n\n")[0], argv)
 
 
 if __name__ == "__main__":
