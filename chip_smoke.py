@@ -13,9 +13,11 @@ Phases, each of which fails the run:
    versions on the card, at the main path's shapes (d = 3, N steps), and
    time both with CUDA events (a kernel slower than its plain version is
    flagged, not failed); the device kernels one K3 sweep runs, with their
-   times; K3 and K6a-c at edge shapes (d = 1, 2, masked steps, column
-   tiles, padding-only blocks; several right-hand-side tiles, a batch, the
-   large-n branch; K6b/K6c from n = 1 to 512); K6a-c as below;
+   times; K2, K3, K4b and K6a-c at edge shapes (d = 1, 2, masked steps,
+   column tiles, ragged and padding-only blocks, K2 without gains or
+   moments, K4b at C = 1, 33, 70, inputs off a 16-byte boundary; several
+   right-hand-side tiles, a batch, the large-n branch; K6b/K6c from n = 1
+   to 512); K6a-c as below;
 3. serving -- make the 16-output chain data from the seed
    (``data/chain.py``), condition the chain on fixed log-parameters drawn
    from the seed with ``fit_gpar(..., filter_impl="pallas",
@@ -249,19 +251,16 @@ def _record(records, failures, kernel, key, got, want, names, ms, plain_ms, nbyt
     )
 
 
-def check_kernels(t, Y, params, M, failures):
-    """Phase 2: each kernel against its plain version on the first
-    conditional's inputs.  Returns {kernel name: record}; K4a/K4b are
-    recorded at C = M + 1 columns (the conditionals) and printed at C = 1
-    (output 1) too."""
+def scan_inputs(t, Y, params, M):
+    """The scan kernels' inputs on the first conditional of the chain, at
+    the main path's shapes: a dict of the float32 (A, Q, R, y) of its
+    LGSSM, the LGSSM, the M + 1 columns [y | K_fu] it whitens, d, n and the
+    time blocking nb x T."""
     import torch
 
     from gpar_at_scale_torch.kernels import time_kernel_only
     from gpar_at_scale_torch.models.gpar import GPARConfig, _select_pseudo_points, _unpack_cond
     from gpar_at_scale_torch.ops import kalman as ok
-    from gpar_at_scale_torch.ops import smoother as osm
-    from gpar_at_scale_torch.ops import whiten as ow
-    from gpar_at_scale_torch.ssm.blocked_grad import whiten_bwd_elements
     from gpar_at_scale_torch.ssm.markov import lgssm_of
 
     f32 = torch.float32
@@ -275,7 +274,35 @@ def check_kernels(t, Y, params, M, failures):
     A, Q, R, y = ok._f32_inputs(lgssm, Y[:, 1])
     n, d = A.shape[0], A.shape[-1]
     nb = ok.num_blocks_for(n)
-    T = -(-n // nb)
+    return dict(A=A, Q=Q, R=R, y=y, lgssm=lgssm, batch=batch, n=n, d=d, nb=nb, T=-(-n // nb))
+
+
+def adjoint_elements(A, Q, R, batch):
+    """K4a/K4b's inputs on the main path: the elements (E, b, W) of the
+    whitened-Gram backward over the columns ``batch`` (b carries C = M + 1
+    columns)."""
+    from gpar_at_scale_torch.ops import kalman as ok
+    from gpar_at_scale_torch.ops import whiten as ow
+    from gpar_at_scale_torch.ssm.blocked_grad import whiten_bwd_elements
+
+    _, _, aux = ow.gram_forward(A, Q, R, batch, want_aux=True)
+    return whiten_bwd_elements(A, ok._e1(A.shape[-1], A), aux)
+
+
+def check_kernels(t, Y, params, M, failures):
+    """Phase 2: each kernel against its plain version on the first
+    conditional's inputs.  Returns {kernel name: record}; K4a/K4b are
+    recorded at C = M + 1 columns (the conditionals) and printed at C = 1
+    (output 1) too."""
+    import torch
+
+    from gpar_at_scale_torch.ops import kalman as ok
+    from gpar_at_scale_torch.ops import smoother as osm
+    from gpar_at_scale_torch.ops import whiten as ow
+
+    inp = scan_inputs(t, Y, params, M)
+    A, Q, R, y, lgssm, batch = (inp[k] for k in ("A", "Q", "R", "y", "lgssm", "batch"))
+    n, d, nb, T = inp["n"], inp["d"], inp["nb"], inp["T"]
     _log(f"[kernels] N={n} d={d} blocks={nb} x {T} steps, B={batch.shape[1]} columns")
     records = {}
     record = functools.partial(_record, records, failures)
@@ -327,9 +354,7 @@ def check_kernels(t, Y, params, M, failures):
 
     # K4a/K4b: the adjoint elements of the whitened-Gram backward (C = M + 1)
     # and their first column alone (the width of output 1's backward)
-    _, _, aux = ow.gram_forward(A, Q, R, batch, want_aux=True)
-    E, b, W = whiten_bwd_elements(A, ok._e1(d, A), aux)
-    del aux
+    E, b, W = adjoint_elements(A, Q, R, batch)
     for C in (1, batch.shape[1]):
         g = b[:, :, :C].contiguous()
         key = "" if C == batch.shape[1] else f"@{C}"
@@ -357,21 +382,70 @@ def check_kernels(t, Y, params, M, failures):
 
 
 def check_kernel_edges(failures):
-    """K3 and K6a-c against their plain versions at shapes the main paths do
-    not reach: K3 at d = 1, 2, 3 with masked steps, one column, several
-    column tiles, a ragged last block and a block of padding only; K6a with
-    no, one and several right-hand-side tiles, a batch, and n past the
-    shared-memory bound (its L2-resident branch); K6b and K6c from n = 1 to
-    512 with one, several and ragged column tiles and a batch."""
+    """K2, K3, K4b and K6a-c against their plain versions at shapes the main
+    paths do not reach: K2 and K4b at d = 1, 2, 3 with a ragged last block,
+    blocks of padding only (n = 1000 in 70 blocks of 15 steps, n = 100 in 16
+    of 7), blocks shorter than a stage's chunk or not a multiple of it,
+    inputs off a 16-byte boundary, K2 without its gains or moments, K4b at
+    C = 1, 33 and 70 (two column tiles); K3 at d = 1, 2, 3 with masked steps, one column, several column
+    tiles, a ragged last block and a block of padding only; K6a with no, one
+    and several right-hand-side tiles, a batch, and n past the shared-memory
+    bound (its L2-resident branch); K6b and K6c from n = 1 to 512 with one,
+    several and ragged column tiles and a batch."""
     import numpy as np
     import torch
 
+    from gpar_at_scale_torch import kernels as gk
     from gpar_at_scale_torch.ops import dense
+    from gpar_at_scale_torch.ops import kalman as ok
+    from gpar_at_scale_torch.ops import smoother as osm
     from gpar_at_scale_torch.ops import whiten as ow
+    from gpar_at_scale_torch.ssm.markov import lgssm_of
 
     rng = np.random.default_rng(3)
     f32 = torch.float32
     worst = {}
+    # K2: a Matern filter of state dimension d, replayed from the phase-2
+    # inits, with and without the gains and the moments
+    def off16(x):  # x's values 4 bytes into a buffer: data not on a 16-byte boundary
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        buf[1:] = x.reshape(-1)
+        return buf[1:].view(x.shape)
+
+    family = {1: gk.Matern12, 2: gk.Matern32, 3: gk.Matern52}
+    for d, n, nb, T, gains, moments in ((1, 1000, 70, 15, True, True), (2, 100, 16, 7, True, False),
+                                        (3, 1000, 70, 15, False, True), (3, 100, 16, 7, True, True),
+                                        (3, 333, 7, 48, False, False), (2, 1990, 40, 50, True, True)):
+        t_ = torch.as_tensor(np.cumsum(rng.uniform(0.1, 1.0, n)) / 50.0, device=_DEV)
+        kern = family[d](lengthscale=torch.tensor(0.7, device=_DEV),
+                         variance=torch.tensor(1.3, device=_DEV))
+        A, Q, R, y = ok._f32_inputs(lgssm_of(kern, t_, 0.1, f32),
+                                    torch.as_tensor(rng.normal(size=n), device=_DEV))
+        if T == 48:  # inputs off the 16-byte boundary the staged kernel copies from
+            A, Q, R, y = (off16(x) for x in (A, Q, R, y))
+        m0, P0 = ok.block_inits(*ok.phase1_plain(A, Q, R, y, nb, T))
+        got = ok.phase3(A, Q, R, y, m0, P0, nb, T, gains, moments)
+        want = ok.phase3_plain(A, Q, R, y, m0, P0, nb, T)
+        asked = (True, True, gains, moments, moments, True, True)
+        if [x is not None for x in got] != list(asked):
+            failures.append(f"K2 at d={d} n={n} returned outputs it was not asked for")
+        pick = lambda o: [x for x, a in zip(o, asked) if a]  # noqa: E731
+        worst[f"K2 d={d} n={n} {nb}x{T} gains={gains} moments={moments}"] = _rel_err(
+            pick(got), pick(want), pick("alpha logS K m P ll logdet".split()))[1]
+    # K4b: contracting E (as the smoother's and the adjoint's are), symmetric
+    # L, from the suffix inits of the plain K4a
+    for d, n, nb, T, C in ((1, 1000, 70, 15, 1), (2, 100, 16, 7, 33), (3, 1000, 70, 15, 70),
+                           (3, 333, 7, 48, 33), (2, 1990, 40, 50, 70), (3, 100, 16, 7, 1)):
+        X = rng.normal(size=(n, d, d))
+        E, g, L = (torch.as_tensor(x).to(_DEV, f32).contiguous() for x in (
+            0.6 * rng.uniform(-1.0, 1.0, size=(n, d, d)) / d, rng.normal(size=(n, d, C)),
+            0.5 * (X + np.swapaxes(X, 1, 2))))
+        if T == 48:
+            E, g, L = (off16(x) for x in (E, g, L))
+        g0, L0 = osm.block_suffix_inits(*osm.r1_plain(E, g, L, nb, T))
+        worst[f"K4b d={d} n={n} {nb}x{T} C={C}"] = _rel_err(
+            osm.suffix_replay(E, g, L, g0, L0, nb, T), osm.r3_plain(E, g, L, g0, L0, nb, T),
+            ["v", "M"])[1]
     for d, n, B, nb, T in ((1, 9, 1, 4, 3), (2, 333, 70, 20, 17), (3, 333, 33, 7, 48),
                            (3, 1000, 5, 62, 17)):
         S = rng.uniform(0.5, 2.0, n)

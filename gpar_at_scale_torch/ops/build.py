@@ -1,6 +1,6 @@
 """Build, load and launch the port's CUDA kernels.
 
-Each source in ``gpar_at_scale_torch/csrc/`` is compiled at first use by its
+Each source in ``gpar_at_scale_torch/csrc/`` (with the headers there) is compiled at first use by its
 own ``nvcc`` process (all started together) into a shared library with a
 plain C interface, under ``build/kernels/`` at the repository root (listed
 in ``.gitignore``), and loaded with ``ctypes``.  A library's file name
@@ -57,6 +57,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
@@ -134,6 +136,12 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA launch failed with cudaError {rc}")
         self.launches += 1
+
+
+def aligned16(x):
+    """x, or a contiguous copy of it when its data does not start on a
+    16-byte boundary (the staged kernels K2 and K4b copy 16-byte units)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def require_f32(name: str, *tensors) -> None:

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from gpar_at_scale_torch.ops.build import CudaKernel, ptr, require_f32
+from gpar_at_scale_torch.ops.build import CudaKernel, aligned16, ptr, require_f32
 from gpar_at_scale_torch.ssm import blocked
 from gpar_at_scale_torch.ssm.blocked import _unblock, block_totals, num_blocks_for, replay_blocks
 from gpar_at_scale_torch.ssm.markov import LGSSM
@@ -153,6 +153,7 @@ def phase3(A, Q, R, y, m0, P0, nb: int, T: int, want_gains=True, want_moments=Tr
         alpha, logs, K, m, P, ll, ls = phase3_plain(A, Q, R, y, m0, P0, nb, T)
         return (alpha, logs, K if want_gains else None) + (
             (m, P) if want_moments else (None, None)) + (ll, ls)
+    A, Q, R, y = (aligned16(x) for x in (A, Q, R, y))
     new = lambda *s: torch.empty(s, dtype=A.dtype, device=A.device)  # noqa: E731
     alpha, logs = new(n), new(n)
     K = new(n, d) if want_gains else None

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from gpar_at_scale_torch.ops.build import CudaKernel, ptr, require_f32
+from gpar_at_scale_torch.ops.build import CudaKernel, aligned16, ptr, require_f32
 from gpar_at_scale_torch.ops.kalman import _require_supported, decorrelate_blocked
 from gpar_at_scale_torch.ssm.blocked import (
     _combine_smooth,
@@ -139,6 +139,7 @@ def suffix_replay(E, g, L, g0, L0, nb: int, T: int):
         raise ValueError(f"suffix_replay: g0, L0 must be ({nb}, {d}, {C}), ({nb}, {d}, {d})")
     if not E.is_cuda:
         return r3_plain(E, g, L, g0, L0, nb, T)
+    E, g, L = (aligned16(x) for x in (E, g, L))
     v = torch.empty((n, d, C), dtype=E.dtype, device=E.device)
     M = torch.empty((n, d, d), dtype=E.dtype, device=E.device)
     K4B(d, ptr(E), ptr(g), ptr(L), n, T, nb, C, ptr(g0), ptr(L0), ptr(v), ptr(M))

@@ -159,14 +159,18 @@ def whiten_columns(lgssm: LGSSM, Y, want_aux: bool = False):
     n, d = A.shape[0], A.shape[-1]
     if Y.shape[0] != n:
         raise ValueError(f"whiten_columns: Y has {Y.shape[0]} rows for an {n}-step SSM")
-    _, _, logdet, S, K, _, P = decorrelate_blocked(
-        lgssm, torch.zeros(n, dtype=torch.float32, device=A.device), return_full=True
+    # the filtered moments of the y = 0 pass only for the backward: K2 then
+    # writes P (and m, unused) beside alpha, log S and K
+    gain_pass = decorrelate_blocked(
+        lgssm, torch.zeros(n, dtype=torch.float32, device=A.device), return_gains=True,
+        return_moments=want_aux,
     )
+    logdet, S, K = gain_pass[2:5]
     out = whiten_sweep(gain_rows(A, S, K), Y, d, want_means=want_aux)
     if not want_aux:
         return out + (logdet,)
     ll, alpha, m = out
-    return ll, alpha, logdet, (alpha * torch.sqrt(S)[:, None], S, K, m, P)
+    return ll, alpha, logdet, (alpha * torch.sqrt(S)[:, None], S, K, m, gain_pass[6])
 
 
 def gram_forward(A, Q, R, U, want_aux: bool = False):

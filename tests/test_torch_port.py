@@ -350,6 +350,7 @@ def _f32_lgssm(rng, name, n, noise=0.1):
     ("Matern12", 2500, None),  # d = 1; 156 blocks of 17 steps, the last ragged
     ("Matern52", 2100, None),  # d = 3
     ("Matern52", 37, 5),  # d = 3; far fewer steps than blocks x steps
+    ("Matern32", 100, 16),  # d = 2; 16 blocks of 7 steps: block 14 ragged, block 15 padding only
 ])
 def test_decorrelate_blocked_matches_pallas(name, n, num_blocks, rng):
     lj, lt = _f32_lgssm(rng, name, n)
@@ -405,6 +406,29 @@ def test_whiten_columns_matches_pallas(name, n, B, rng):
     assert m.shape == ref.m.shape == (n, l64.dim, B)
     for got, want in ((e, ref.v), (S, ref.S), (m, ref.m), (P, ref.P)):
         _close(got, _np(want), rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def test_whiten_columns_moments_only_for_the_backward(rng, monkeypatch):
+    """``whiten_columns`` asks the y = 0 gain pass (K2) for the filtered
+    moments only when the backward needs them (``want_aux``); with and
+    without them it returns the same ll, alpha and logdet, bit for bit."""
+    n, B = 333, 5
+    _, lt = _f32_lgssm(rng, "Matern52", n)
+    Y = _t(rng.normal(size=(n, B)), torch.float32)
+    asked = []
+    decorrelate = tops_whiten.decorrelate_blocked
+
+    def spy(*args, **kwargs):
+        asked.append((kwargs.get("return_moments", False), kwargs.get("return_full", False)))
+        return decorrelate(*args, **kwargs)
+
+    monkeypatch.setattr(tops_whiten, "decorrelate_blocked", spy)
+    ll, alpha, logdet = tops_whiten.whiten_columns(lt, Y)
+    ll_a, alpha_a, logdet_a, aux = tops_whiten.whiten_columns(lt, Y, want_aux=True)
+    assert asked == [(False, False), (True, False)]
+    for got, want in ((ll_a, ll), (alpha_a, alpha), (logdet_a, logdet)):
+        assert torch.equal(got, want)
+    assert aux[4].shape == (n, 3, 3) and torch.isfinite(aux[4]).all()
 
 
 def test_whiten_sweep_plain_blocking(rng):
@@ -565,16 +589,18 @@ def _suffix_elements(rng, n, d, C):
     return E, rng.normal(size=(n, d, C)), 0.5 * (X + np.swapaxes(X, 1, 2))
 
 
-@pytest.mark.parametrize("d", [1, 2, 3])
-def test_suffix_scan_matches_pallas(d, rng):
+@pytest.mark.parametrize("d,n,C", [(1, 3000, 5), (2, 3000, 5), (3, 3000, 5), (3, 300, 70)],
+                         ids=["1", "2", "3", "3-C70"])
+def test_suffix_scan_matches_pallas(d, n, C, rng):
     """K4's plain path against the Pallas kernel (interpret) at n = 3000,
     three grid steps of 1024 lanes, one column; with C = 5 columns against
-    the JAX blocked suffix scan.  float32 on both sides over different block
-    splits: measured at most 1.0e-7 of each output's scale, held to 1e-5."""
+    the JAX blocked suffix scan.  The last case takes C = 70 columns (more
+    than one column tile of the card's K4b) at n = 300.  float32 on both
+    sides over different block splits: measured at most 1.0e-7 of each
+    output's scale, held to 1e-5."""
     from gpar_at_scale_tpu.ops.pallas_smoother import pallas_suffix_scan
 
-    n = 3000
-    E, g, L = _suffix_elements(rng, n, d, 5)
+    E, g, L = _suffix_elements(rng, n, d, C)
     f32 = np.float32
     Et, gt, Lt = (_t(x, torch.float32) for x in (E, g, L))
     v1, M1 = tops_smoother.suffix_scan(Et, gt[:, :, 0], Lt)
@@ -583,6 +609,7 @@ def test_suffix_scan_matches_pallas(d, rng):
     for got, want in ((v1, vj), (M1, Mj)):
         _close(got, want, rtol=0, atol=1e-5 * float(np.abs(np.asarray(want)).max()))
     v5, M5 = tops_smoother.suffix_scan(Et, gt, Lt)
+    assert v5.shape == (n, d, C)
     _, vb, Mb = jax.jit(jblocked.blocked_suffix_scan)(*(jnp.asarray(x, f32) for x in (E, g, L)))
     for got, want in ((v5, vb), (M5, Mb)):
         _close(got, want, rtol=0, atol=1e-5 * float(np.abs(np.asarray(want)).max()))

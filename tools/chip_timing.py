@@ -78,19 +78,22 @@ def run_trees(script: str, time_tree, default_reps: int, description: str, argv=
     return rc
 
 
-def patch_source(tool: str, edits) -> str:
-    """csrc/dense.cu with each (old, new) of ``edits`` applied, in order; each
-    ``old`` must occur exactly once, so a tool whose markers went stale stops."""
-    s = (ROOT / "gpar_at_scale_torch" / "csrc" / "dense.cu").read_text()
+def patch_source(tool: str, edits, name: str = "dense", root: Path = ROOT) -> str:
+    """csrc/<name>.cu of the checkout ``root`` with each (old, new) of
+    ``edits`` applied, in order; each ``old`` must occur exactly once, so a
+    tool whose markers went stale stops."""
+    s = (Path(root) / "gpar_at_scale_torch" / "csrc" / f"{name}.cu").read_text()
     for old, new in edits:
         if s.count(old) != 1:
-            raise SystemExit(f"{tool}: csrc/dense.cu no longer has the marker {old!r}")
+            raise SystemExit(f"{tool}: csrc/{name}.cu no longer has the marker {old!r}")
         s = s.replace(old, new)
     return s
 
 
-def build_variants(tool: str, source: str, variants: dict, entries: dict) -> dict:
-    """Build ``source`` plus the spin kernel once per variant (name -> extra
+def build_variants(tool: str, source: str, variants: dict, entries: dict, name: str = "dense",
+                   root: Path = ROOT) -> dict:
+    """Build ``source`` (a variant of csrc/<name>.cu of ``root``, whose
+    headers it includes) plus the spin kernel once per variant (name -> extra
     nvcc flags), all nvcc processes at once, under build/<tool>/; returns
     name -> CDLL with ``entries`` (symbol -> ctypes argtypes) bound, each
     returning an int."""
@@ -98,23 +101,24 @@ def build_variants(tool: str, source: str, variants: dict, entries: dict) -> dic
 
     out_dir = ROOT / "build" / tool
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = out_dir / "dense_variant.cu"
+    src = out_dir / f"{name}_variant.cu"
     src.write_text(source + SPIN)
-    flags = [f for f in NVCC_FLAGS if f != "-Xptxas=-v"]
+    csrc = Path(root).resolve() / "gpar_at_scale_torch" / "csrc"
+    flags = [f for f in NVCC_FLAGS if f != "-Xptxas=-v"] + ["-I", str(csrc)]
     # a left-out step leaves variables unused: nvcc's warnings are expected
-    procs = {name: (subprocess.Popen([_nvcc(), *flags, *defs, "-o", str(out_dir / f"v{i}.so"),
-                                      str(src)], stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), out_dir / f"v{i}.so")
-             for i, (name, defs) in enumerate(variants.items())}
+    procs = {v: (subprocess.Popen([_nvcc(), *flags, *defs, "-o", str(out_dir / f"{name}{i}.so"),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True), out_dir / f"{name}{i}.so")
+             for i, (v, defs) in enumerate(variants.items())}
     libs = {}
-    for name, (proc, so) in procs.items():
+    for v, (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"{tool}: nvcc failed for {name}:\n{log}")
-        libs[name] = ctypes.CDLL(str(so))
+            raise SystemExit(f"{tool}: nvcc failed for {v}:\n{log}")
+        libs[v] = ctypes.CDLL(str(so))
         for sym, argtypes in {**entries, "spin": [ctypes.c_longlong, ctypes.c_void_p,
                                                   ctypes.c_void_p]}.items():
-            fn = getattr(libs[name], sym)
+            fn = getattr(libs[v], sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return libs
