@@ -13,11 +13,11 @@ Phases, each of which fails the run:
    versions on the card, at the main path's shapes (d = 3, N steps), and
    time both with CUDA events (a kernel slower than its plain version is
    flagged, not failed); the device kernels one K3 sweep runs, with their
-   times; K2, K3, K4b and K6a-c at edge shapes (d = 1, 2, masked steps,
-   column tiles, ragged and padding-only blocks, K2 without gains or
-   moments, K4b at C = 1, 33, 70, inputs off a 16-byte boundary; several
-   right-hand-side tiles, a batch, the large-n branch; K6b/K6c from n = 1
-   to 512); K6a-c as below;
+   times; K1, K2, K3, K4b and K6a-c at edge shapes (d = 1, 2, masked
+   steps, column tiles, ragged and padding-only blocks, K1 on y = 0, K2
+   without gains or moments, K4b at C = 1, 33, 70, inputs off a 16-byte
+   boundary; several right-hand-side tiles, a batch, the large-n branch;
+   K6b/K6c from n = 1 to 512); K6a-c as below;
 3. serving -- make the 16-output chain data from the seed
    (``data/chain.py``), condition the chain on fixed log-parameters drawn
    from the seed with ``fit_gpar(..., filter_impl="pallas",
@@ -164,12 +164,11 @@ def _bound_ms(nbytes, flops):
 
 
 # Floating-point operations per step, counted from csrc/ (d x d products are
-# 2 d^3, matrix-vector products 2 d^2, the adjugate inverse 42 at d = 3).
+# 2 d^3, matrix-vector products 2 d^2).
 def _k1_flops(d):
-    inv = {1: 1, 2: 9, 3: 42}[d]
-    element = 6 * d * d + 3 * d + 2
-    combine = 10 * 2 * d**3 + 4 * 2 * d * d + 2 * inv + 2 * d
-    return element + combine
+    # A_k A_r and A_k C_r; A_k b_r and A - K h; the upper triangles of
+    # Cb (2d each), J and C (2 each); S, 1/S, v; K, h/S, eta, b
+    return 4 * d**3 + 4 * d * d + d * (d + 1) * (d + 2) + 3 + 6 * d
 
 
 def _k2_flops(d):
@@ -382,12 +381,13 @@ def check_kernels(t, Y, params, M, failures):
 
 
 def check_kernel_edges(failures):
-    """K2, K3, K4b and K6a-c against their plain versions at shapes the main
-    paths do not reach: K2 and K4b at d = 1, 2, 3 with a ragged last block,
+    """K1, K2, K3, K4b and K6a-c against their plain versions at shapes the main
+    paths do not reach: K1, K2 and K4b at d = 1, 2, 3 with a ragged last block,
     blocks of padding only (n = 1000 in 70 blocks of 15 steps, n = 100 in 16
     of 7), blocks shorter than a stage's chunk or not a multiple of it,
-    inputs off a 16-byte boundary, K2 without its gains or moments, K4b at
-    C = 1, 33 and 70 (two column tiles); K3 at d = 1, 2, 3 with masked steps, one column, several column
+    inputs off a 16-byte boundary, K1 on y = 0 (the gain pass), K2 without
+    its gains or moments, K4b at C = 1, 33 and 70 (two column tiles); K3 at
+    d = 1, 2, 3 with masked steps, one column, several column
     tiles, a ragged last block and a block of padding only; K6a with no, one
     and several right-hand-side tiles, a batch, and n past the shared-memory
     bound (its L2-resident branch); K6b and K6c from n = 1 to 512 with one,
@@ -405,8 +405,9 @@ def check_kernel_edges(failures):
     rng = np.random.default_rng(3)
     f32 = torch.float32
     worst = {}
-    # K2: a Matern filter of state dimension d, replayed from the phase-2
-    # inits, with and without the gains and the moments
+    # K1 and K2: a Matern filter of state dimension d; K1 on its observations
+    # and on y = 0, K2 replayed from the phase-2 inits, with and without the
+    # gains and the moments
     def off16(x):  # x's values 4 bytes into a buffer: data not on a 16-byte boundary
         buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
         buf[1:] = x.reshape(-1)
@@ -423,6 +424,10 @@ def check_kernel_edges(failures):
                                     torch.as_tensor(rng.normal(size=n), device=_DEV))
         if T == 48:  # inputs off the 16-byte boundary the staged kernel copies from
             A, Q, R, y = (off16(x) for x in (A, Q, R, y))
+        for y1, what in ((y, ""), (torch.zeros_like(y), " y=0")):
+            worst[f"K1 d={d} n={n} {nb}x{T}{what}"] = _rel_err(
+                ok.phase1(A, Q, R, y1, nb, T), ok.phase1_plain(A, Q, R, y1, nb, T),
+                "A b C eta J".split())[1]
         m0, P0 = ok.block_inits(*ok.phase1_plain(A, Q, R, y, nb, T))
         got = ok.phase3(A, Q, R, y, m0, P0, nb, T, gains, moments)
         want = ok.phase3_plain(A, Q, R, y, m0, P0, nb, T)

@@ -1,5 +1,6 @@
 // Staging of contiguous float ranges between device memory and shared
-// memory, for the scan kernels K2 (kalman_scan.cu) and K4b (suffix_scan.cu).
+// memory, for the scan kernels K1 and K2 (kalman_scan.cu) and K4b
+// (suffix_scan.cu).
 //
 // A range [first, first + count) of a float array is staged into a slot of
 // shared memory from the 16-byte boundary at or below `first`: the range

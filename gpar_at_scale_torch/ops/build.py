@@ -140,7 +140,7 @@ class CudaKernel:
 
 def aligned16(x):
     """x, or a contiguous copy of it when its data does not start on a
-    16-byte boundary (the staged kernels K2 and K4b copy 16-byte units)."""
+    16-byte boundary (the staged kernels K1, K2 and K4b copy 16-byte units)."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 

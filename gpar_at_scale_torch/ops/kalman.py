@@ -4,9 +4,11 @@ Counterpart of ``gpar_at_scale_tpu/ops/pallas_kalman.py::pallas_decorrelate``.
 The series is split into ``nb`` contiguous time blocks of T steps and
 whitened in three phases:
 
-  phase 1 (K1, ``csrc/kalman_scan.cu::phase1_kernel``) -- fold each block's
-          Sarkka & Garcia-Fernandez filtering elements (A, b, C, eta, J)
-          into one block element, one thread per block;
+  phase 1 (K1, ``csrc/kalman_scan.cu::phase1_kernel``) -- reduce each
+          block to its Sarkka & Garcia-Fernandez filtering element (A, b,
+          C, eta, J): the kernel runs the filter through the block
+          conditioned on the state entering it, which is the fold of the
+          block's one-step elements without the combine's inverses;
   phase 2 (tensor code) -- exclusive associative prefix over the block
           elements, which gives every block its filtered init (m0, P0);
   phase 3 (K2, ``csrc/kalman_scan.cu::phase3_kernel``) -- replay each block
@@ -133,6 +135,7 @@ def phase1(A, Q, R, y, nb: int, T: int):
     n, d = _check_series("phase1", A, Q, R, y, nb, T)
     if not A.is_cuda:
         return phase1_plain(A, Q, R, y, nb, T)
+    A, Q, R, y = (aligned16(x) for x in (A, Q, R, y))
     eA, eC, eJ = (torch.empty((nb, d, d), dtype=A.dtype, device=A.device) for _ in range(3))
     eb, eeta = (torch.empty((nb, d), dtype=A.dtype, device=A.device) for _ in range(2))
     K1(d, ptr(A), ptr(Q), ptr(R), ptr(y), n, T, nb,

@@ -376,6 +376,64 @@ def test_decorrelate_blocked_matches_pallas(name, n, num_blocks, rng):
     _close(mo[4], P, rtol=0, atol=0)
 
 
+def _k1_affine_fold(A, Q, R, y, nb, T):
+    """The per-step recursion of ``csrc/kalman_scan.cu::phase1_kernel``,
+    vectorised over the nb time blocks: the filter run through each block
+    conditioned on the state entering it (H = e1).  Steps at or past n leave
+    the running element as it is."""
+    n, d = A.shape[0], A.shape[-1]
+    I = torch.eye(d, dtype=A.dtype).expand(nb, d, d)
+    Ar, Cr, Jr = I.clone(), torch.zeros(nb, d, d, dtype=A.dtype), torch.zeros(nb, d, d, dtype=A.dtype)
+    br, er = torch.zeros(nb, d, dtype=A.dtype), torch.zeros(nb, d, dtype=A.dtype)
+    for t in range(T):
+        k = torch.arange(nb) * T + t
+        live = k < n
+        kk = torch.where(live, k, 0)
+        Ak, Qk, Rk, yk = A[kk], Q[kk], R[kk], y[kk]
+        Ab = Ak @ Ar
+        bb = (Ak @ br[:, :, None])[:, :, 0]
+        Cb = Ak @ Cr @ Ak.transpose(-1, -2) + Qk
+        S = Cb[:, 0, 0] + Rk
+        K = Cb[:, :, 0] / S[:, None]
+        h = Ab[:, 0, :]
+        v = yk - bb[:, 0]
+        new = (Ab - K[:, :, None] * h[:, None, :], bb + K * v[:, None],
+               Cb - K[:, :, None] * Cb[:, None, 0, :], er + h * (v / S)[:, None],
+               Jr + h[:, :, None] * h[:, None, :] / S[:, None, None])
+        Ar, br, Cr, er, Jr = (torch.where(live.view((nb,) + (1,) * (x.dim() - 1)), x, old)
+                              for x, old in zip(new, (Ar, br, Cr, er, Jr)))
+    return Ar, br, Cr, er, Jr
+
+
+@pytest.mark.parametrize("d,n,nb,T,zero_y", [
+    (1, 1000, 70, 15, False),  # ragged block 66, blocks 67-69 padding only
+    (2, 100, 16, 7, False),  # block 14 ragged, block 15 padding only
+    (3, 100, 16, 7, False),
+    (3, 1000, 70, 15, True),  # the gain pass: y = 0
+], ids=["d1", "d2", "d3", "d3-y0"])
+def test_k1_recursion_matches_phase1_plain(d, n, nb, T, zero_y, rng):
+    """K1's inversion-free recursion is the fold of the one-step filtering
+    elements: its float64 mirror against ``phase1_plain`` (itself held to
+    the JAX kernel by ``test_decorrelate_blocked_matches_pallas``), and the
+    phase-2 inits of both."""
+    t = np.cumsum(rng.uniform(0.1, 1.0, n)) / 50.0
+    kern = getattr(tk, {1: "Matern12", 2: "Matern32", 3: "Matern52"}[d])(
+        lengthscale=torch.tensor(0.7, dtype=F64), variance=torch.tensor(1.3, dtype=F64))
+    lg = tmarkov.lgssm_of(kern, _t(t), 0.1, F64)
+    A, Q = lg.A.contiguous(), lg.Q.contiguous()
+    R = lg.R.to(F64).expand(n).contiguous()
+    y = torch.zeros(n, dtype=F64) if zero_y else _t(rng.normal(size=n))
+    got = _k1_affine_fold(A, Q, R, y, nb, T)
+    want = tops_kalman.phase1_plain(A, Q, R, y, nb, T)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _close(g, w, rtol=1e-10, atol=1e-10 * float(w.abs().max()))
+    if zero_y:  # b and eta are exactly zero on the gain pass
+        assert not got[1].any() and not got[3].any() and not want[1].any()
+    for g, w in zip(tops_kalman.block_inits(*got), tops_kalman.block_inits(*want)):
+        _close(g, w, rtol=1e-10, atol=1e-10 * float(w.abs().max()))
+
+
 @pytest.mark.parametrize("name,n,B", [
     ("Matern52", 1500, 7),
     ("Matern12", 700, 3),

@@ -1,14 +1,17 @@
 """What the timing tools under tools/ share: running one checkout per process
 in turns (``run_trees``), building variants of a CUDA source with nvcc
 (``patch_source``, ``build_variants``), timing a call with CUDA events
-(``event_ms``) and reading the card's clocks (``print_clocks``).  Nothing
-here runs on import; the CUDA parts need a card and nvcc.
+(``event_ms``), reading the card's clocks (``print_clocks``) and loading
+this checkout's ``chip_smoke.py`` as the measuring code
+(``this_chip_smoke``).  Nothing here runs on import; the CUDA parts need a
+card and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import subprocess
@@ -36,6 +39,15 @@ def _smi(fields: str) -> str:
     smi = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
                          capture_output=True, text=True, check=False)
     return smi.stdout.strip() or "nvidia-smi: no output"
+
+
+def this_chip_smoke():
+    """This checkout's ``chip_smoke.py``, loaded by path: the timing tools
+    measure every tree with the same code."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def run_trees(script: str, time_tree, default_reps: int, description: str, argv=None) -> int:

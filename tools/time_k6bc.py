@@ -28,21 +28,13 @@ The card's name and power limit are printed first.  Needs a CUDA device.
 
 from __future__ import annotations
 
-import importlib.util
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(HERE))
 
-from tools.chip_timing import run_trees  # noqa: E402
-
-
-def _this_chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+from tools.chip_timing import run_trees, this_chip_smoke  # noqa: E402
 
 
 def time_tree(root: Path, reps: int, seed: int) -> dict:
@@ -55,7 +47,7 @@ def time_tree(root: Path, reps: int, seed: int) -> dict:
     from gpar_at_scale_torch.ops import dense
     from gpar_at_scale_torch.ops.build import build_all
 
-    cs = _this_chip_smoke()
+    cs = this_chip_smoke()
     build_all()
     f32 = torch.float32
     m = cs.dense_inputs(generate_synthetic_eeg(seed=0), "cuda")
