@@ -49,7 +49,34 @@ Phases, each of which fails the run:
 9. eeg-bench -- ``bench.py``'s pipeline (50 Adam steps on the DTC bound,
    q(u), one predictive of 100 points) under "on" and "off": median seconds
    per pipeline and per request (200 sequential requests), and one traced
-   pipeline's device busy share each.
+   pipeline's device busy share each;
+10. parallel -- ``fit_gpar(parallel=True)`` on the chain with phase 6's
+   configuration (the JAX package's vmapped fit; the port fits each
+   conditional as the sequential fit does), against phase 6's sequential fit from the same start (log-parameters
+   within PAR_ATOL), K1-K4b launched; then the EEG chain's six scaled
+   conditionals (F3-F6, FZ, F1, F2 in chain order) with
+   ``fit_conditionals_parallel`` under "on" (K6a-c launched) and "off",
+   FZ, F1, F2 by their float64 objective at the end point beside phase 8's
+   sequential fits; seconds of both fits;
+11. api -- the reference-named pipeline on ``generate_big_dataset(seed=0)``
+   (N = 8496): ``get_sde_predictions`` for output 1, then
+   ``get_gpar_scaled_predictions`` for output 2 given output 1's
+   predictions (50 pseudo-inputs, 50 L-BFGS steps, 100 Monte-Carlo
+   samples), finite, SMSE against the true curves, K1-K4b launched, and the
+   end point's DTC bound by the kernels and by the float64 blocked engine;
+12. assoc -- the associative-scan engine (tensor code): ``parallel_filter``
+   and ``parallel_smooth`` on the first conditional's series (N = 1e6,
+   d = 3, one column and M + 1) against K1/K2, K3 and K4a/K4b; one
+   objective and gradient of a sum-kernel conditional (Matern-5/2 +
+   Matern-1/2, d = 4) under ``filter_impl="pallas"``, which must launch no
+   scan kernel, against the float64 blocked engine; 3 Adam steps under
+   ``filter_impl="associative"``; seconds and peak device memory of each.
+
+Phase 3 also runs the Monte-Carlo predictive ([mc]): the served chain's
+last conditional with ``predict_scaled(num_samples=100, generator=...)``
+against its analytic predictive (the mean within 6 standard errors, the
+f_x part of the variance within 6 sqrt(2 / 99) relative), with both
+requests' seconds.
 
 Phase 2 also holds K6a/K6b/K6c against their plain versions at the EEG
 shapes (K6a at 156 x 156 with 157 columns and 256 x 256 with 413, and
@@ -689,7 +716,8 @@ def _scan_kernels():
 def train_chain(t, Y, t_star, lat_star, sn, params, failures):
     """Phase 6, the main path: train the chain with 10 Adam steps per
     output through the kernels, then answer 3 requests.  Returns the
-    trained model and every kernel's launches in the training run."""
+    trained model, every kernel's launches in the training run and the
+    training run's seconds."""
     import numpy as np
     import torch
 
@@ -733,7 +761,7 @@ def train_chain(t, Y, t_star, lat_star, sn, params, failures):
     for k in _scan_kernels():
         if train_launches[k.name] == 0:
             failures.append(f"{k.name} was not launched on the training path")
-    return model, train_launches
+    return model, train_launches, fit_s
 
 
 def full_n_check(model, params, failures):
@@ -1082,7 +1110,8 @@ def eeg_run(ds, mode, failures, dtype=None):
     before.  IGP runs in float32 through the scan kernels, the conditionals
     in ``dtype`` (float32 by default).  Returns ({model: {channel: mean}}, seconds per optimizer step,
     seconds per request, launches of K6a-c in training, q(u) and requests
-    summed over the fits)."""
+    summed over the fits, {(backend, channel): the conditional's float64
+    objective at its end point})."""
     import numpy as np
     import torch
 
@@ -1103,6 +1132,7 @@ def eeg_run(ds, mode, failures, dtype=None):
     step_s = {m: [] for m in EEG_EXPECT}
     req_s = {m: [] for m in EEG_EXPECT}
     totals = {part: (0, 0, 0) for part in ("train", "q(u)", "request")}
+    ends = {}
 
     def add(part, c):
         totals[part] = tuple(a + b for a, b in zip(totals[part], c))
@@ -1164,12 +1194,13 @@ def eeg_run(ds, mode, failures, dtype=None):
             train = _minus(_minus(_dense_counts(), before), qu)
             X_te = torch.stack(cols_te, 1)
             mu, secs, req = request(lambda: fit.predict(t_te, X_te))
+            ends[(backend, ch)] = _nll64(fit)
             if mode == "on":
                 evals, left = _check_eeg_counts(backend, ch, train, qu, req, failures)
                 _log(f"[eeg] {mode} {backend} {ch}: {fit.opt.num_steps} L-BFGS steps, {evals} "
                      f"evaluations (+{left} K6a launches of evaluations that left the domain), "
                      f"nll {float(fit.opt.value):.4f} (float64 at these parameters "
-                     f"{_nll64(fit):.4f}), {fit.opt.seconds:.3f} s; "
+                     f"{ends[(backend, ch)]:.4f}), {fit.opt.seconds:.3f} s; "
                      f"K6a/K6b/K6c launches: training {train}, q(u) {qu}, request {req}")
             else:
                 _log(f"[eeg] {mode} {backend} {ch}: {fit.opt.num_steps} L-BFGS steps, nll "
@@ -1182,7 +1213,7 @@ def eeg_run(ds, mode, failures, dtype=None):
             add("request", req)
             cols_tr.append(as_dev(ds.Y[:n, yi], dtype))  # train on the true values
             cols_te.append(mu)  # chain the predictions forward
-    return preds, step_s, req_s, totals
+    return preds, step_s, req_s, totals, ends
 
 
 def _smse(pred, truth):
@@ -1244,7 +1275,8 @@ def eeg_phase(failures):
     under "off" with the conditionals in float64 (torch.linalg at the
     example's own precision: in float32 it fails to factor F2's scaled
     q(u) at the optimum its L-BFGS reaches on the card), and SMSE of both.
-    Returns K6a-c's launches in the "on" run."""
+    Returns K6a-c's launches in the "on" run and {mode: {(backend,
+    channel): float64 objective at the conditional's end point}}."""
     import numpy as np
     import torch
 
@@ -1260,7 +1292,7 @@ def eeg_phase(failures):
             t0 = time.perf_counter()
             results[mode] = eeg_run(ds, mode, failures, torch.float64 if mode == "off" else None)
             launches = _dense_counts()
-            preds, step_s, req_s, totals = results[mode]
+            preds, step_s, req_s, totals, _ = results[mode]
             _log(f"[eeg] {mode}: the three models in {time.perf_counter() - t0:.1f} s; s/step "
                  + ", ".join(f"{m} {float(np.median(v)):.4f}" for m, v in step_s.items())
                  + "; s/request " + ", ".join(f"{m} {float(np.median(v)):.4f}" for m, v in req_s.items())
@@ -1289,7 +1321,7 @@ def eeg_phase(failures):
             f"{row[i]:.4f} {row[i + 1]:.4f}" for i in range(0, 6, 2)))
     if not finite:
         failures.append("[eeg] predictions are not finite or have the wrong shape")
-    return on_launches
+    return on_launches, {mode: results[mode][4] for mode in results}
 
 
 def bench_pipeline():
@@ -1401,6 +1433,440 @@ def eeg_bench(failures, reps=5, requests=200):
         failures.append("[eeg-bench] the pipeline's predictions are not finite or of the wrong shape")
 
 
+# ---------------------------------------------------------------------------
+# The associative-scan engine, the Monte-Carlo predictive, the reference-named
+# api and the parallel fit of the conditionals
+# ---------------------------------------------------------------------------
+
+# [assoc] The associative-scan filter and smoother (tensor code) against K1/K2
+# and K4a/K4b on the chain's series, float32, as max |assoc - kernels| /
+# max |kernels| per output (ll relative): the two combine the same steps in
+# another order (log2 N doubling levels against 62-step blocks).
+ASSOC_TOL, ASSOC_LL_RTOL = 1e-3, 1e-5
+# Adam steps under filter_impl="associative".  Autograd through the doubling
+# levels keeps every level's elements (memory grows as N log2 N); at the
+# chain's N = 1e6 the sum-kernel gradient peaked at 51.95 GiB and the Adam
+# steps at 40.34 GiB on an H100 80GB (tools/assoc_memory.py), so nothing is cut.
+ASSOC_STEPS = 3
+# [assoc] The associative Adam run's first value (the objective at the seeded
+# start) against the kernel path's at the same parameters, nll/N.
+ASSOC_VALUE_ATOL = 1e-5
+# [mc] The reference's sample count, and the bounds on the Monte-Carlo
+# predictive against the analytic one: its mean within MC_Z standard errors
+# sqrt(rowsum(H^2) / S) of the analytic mean, and the f_x part of its
+# variance within MC_Z * sqrt(2 / (S - 1)) relative of rowsum(H^2).  Beside
+# them, the request's draws whitened, xi = L_D^T (eps - m_eps), whose M * S
+# entries must read as standard normal: mean within MC_Z / sqrt(M S) of 0,
+# mean square within MC_Z * sqrt(2 / (M S)) of 1.  And the body fed 2M
+# sigma points eps = m_eps +- sqrt(M) L_D^-T e_j, whose sample mean and
+# (biased) covariance are q(eps)'s exactly: its mean and f_x variance must
+# equal the analytic ones, to MC_BODY_RTOL of max rowsum(H^2) for the
+# variance and of its square root for the mean (float32 smoothing of other
+# columns; a body that halved the variance would read 0.5).
+MC_SAMPLES, MC_Z, MC_BODY_RTOL = 100, 6.0, 0.05
+# [api] get_gpar_scaled_predictions on the reference's big toy dataset: 50
+# pseudo-inputs, 50 L-BFGS steps, the test grid of examples/scaled_examples.py
+# (every 100th point of the true curve).
+API_M, API_STEPS, API_STRIDE = 50, 50, 100
+# [parallel] The parallel fit of the chain against the sequential one from
+# the same start, float32, per log-parameter (10 Adam steps of 5e-2 each):
+# the port fits each conditional the same way under both settings.
+PAR_ATOL = 1e-3
+
+
+def sum_time_family(lengthscale, variance):
+    """The time kernel of the sum-kernel conditional: Matern-5/2 plus a
+    slower Matern-1/2 tied to its parameters (state dim 4, H = [1, 0, 0, 1])."""
+    from gpar_at_scale_torch.kernels import Matern12, Matern52
+
+    return (Matern52(lengthscale=lengthscale, variance=variance)
+            + Matern12(lengthscale=4.0 * lengthscale, variance=0.25 * variance))
+
+
+def _peak_gib():
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _scaled_rel(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def assoc_engines(t, Y, params, failures):
+    """[assoc] ``parallel_decorrelate``/``parallel_filter`` and
+    ``parallel_smooth`` on the first conditional's series (one column, then
+    its M + 1 columns [y | K_fu]) against the kernel path on the same
+    float32 inputs: K1/K2 (``decorrelate_blocked``) and K1-K3
+    (``whiten_columns``) for alpha and ll, K1/K2 + K4a/K4b
+    (``pallas_smooth``, column by column) for the smoothed mean and
+    variance."""
+    import torch
+
+    from gpar_at_scale_torch.ops import kalman as ok
+    from gpar_at_scale_torch.ops import smoother as osm
+    from gpar_at_scale_torch.ops import whiten as ow
+    from gpar_at_scale_torch.ssm import pkalman
+
+    s = scan_inputs(t, Y, params, M)
+    lg, U = s["lgssm"], s["batch"]
+    for cols in (1, U.shape[1]):
+        Uc = U[:, :cols]
+        torch.cuda.reset_peak_memory_stats()
+        _sync(_DEV)
+        t0 = time.perf_counter()
+        res = pkalman.parallel_filter(lg, Uc)
+        sm = pkalman.parallel_smooth(lg, Uc, res)
+        _sync(_DEV)
+        secs, peak = time.perf_counter() - t0, _peak_gib()
+        alpha, ll = res.v / torch.sqrt(res.S)[:, None], res.ll
+        if cols == 1:
+            ll_k, alpha_k, _ = ok.decorrelate_blocked(lg, Uc[:, 0])
+            ll_k, alpha_k = ll_k[None], alpha_k[:, None]
+        else:
+            ll_k, alpha_k, _ = ow.whiten_columns(lg, Uc)
+        smooth_k = [osm.pallas_smooth(lg, Uc[:, c]) for c in range(cols)]
+        mean_k = torch.stack([f[0] for f in smooth_k], 1)
+        rel = {"alpha": _scaled_rel(alpha, alpha_k), "mean": _scaled_rel(sm.mean, mean_k),
+               "var": _scaled_rel(sm.var, smooth_k[0][1])}
+        ll_rel = float(((ll.double() - ll_k.double()) / ll_k.double()).abs().max())
+        ok_ = all(math.isfinite(v) and v <= ASSOC_TOL for v in rel.values()) and ll_rel <= ASSOC_LL_RTOL
+        _log(f"[assoc] parallel_filter + parallel_smooth, N={s['n']} d={s['d']} {cols} column(s): "
+             f"{secs:.3f} s, peak device memory {peak:.2f} GiB; against the kernels: "
+             + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+             + f" (tol {ASSOC_TOL:.0e}), ll rel {ll_rel:.2e} (tol {ASSOC_LL_RTOL:.0e}) "
+             f"{'ok' if ok_ else 'FAIL'}")
+        if not ok_:
+            failures.append(f"[assoc] the associative engines disagree with the kernels at {cols} column(s)")
+
+
+def assoc_sum_conditional(t, Y, params, n, failures):
+    """[assoc] One objective and gradient of a sum-kernel conditional
+    (``sum_time_family``, d = 4) of the chain under
+    ``filter_impl="pallas"`` (float32): the kernels cannot take its SDE, so
+    ``gp/dtc.py`` routes it to the associative engine and no scan kernel
+    may launch.  Held against the float64 tensor-code blocked engine
+    (``filter_impl="blocked"``) on the same inputs."""
+    import torch
+
+    from gpar_at_scale_torch.gp.dtc import dtc_objective
+    from gpar_at_scale_torch.models.gpar import GPARConfig, _conditional_bound, _select_pseudo_points
+
+    out = {}
+    for impl, dtype in (("pallas", torch.float32), ("blocked", torch.float64)):
+        cfg = GPARConfig(backend="scaled", filter_impl=impl, num_pseudo_points=M, dtype=dtype,
+                         time_family=sum_time_family)
+        X = Y[:n, :1].to(dtype)
+        at = _conditional_bound(cfg, t[:n].to(dtype), X, Y[:n, 1].to(dtype), _select_pseudo_points(X, M))
+        for k in _scan_kernels():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        _sync(_DEV)
+        t0 = time.perf_counter()
+        p = params[1].detach().to(dtype).requires_grad_(True)
+        value = -at(dtc_objective, p)
+        value.backward()
+        _sync(_DEV)
+        secs = time.perf_counter() - t0
+        launched = {k.name: k.launches for k in _scan_kernels() if k.launches}
+        out[impl] = (float(value.detach()) / n, p.grad.double().cpu().numpy(), secs, _peak_gib(),
+                     launched)
+    (v_k, g_k, s_k, peak, launched), (v_r, g_r, s_r, peak_r, _) = out["pallas"], out["blocked"]
+    ok_, gap = _grad_gap(g_k, g_r, n)
+    _log(f"[assoc] sum-kernel conditional (Matern-5/2 + Matern-1/2, d=4) N={n} M={M} under "
+         f"filter_impl='pallas': nll/N {v_k:.8f} vs float64 blocked {v_r:.8f}; gradient "
+         f"{[round(float(x), 3) for x in g_k]} vs {[round(float(x), 3) for x in g_r]}; {gap} "
+         f"{'ok' if ok_ else 'FAIL'}; {s_k:.3f} s, peak device memory {peak:.2f} GiB (the "
+         f"float64 blocked engine {s_r:.3f} s, {peak_r:.2f} GiB); scan kernels launched: "
+         f"{launched or 'none'}")
+    if not ok_:
+        failures.append("[assoc] the sum-kernel conditional's gradient disagrees with the float64 engine")
+    if launched:
+        failures.append(f"[assoc] the sum-kernel conditional launched scan kernels: {launched}")
+
+
+def assoc_adam(t, Y, params, n, failures):
+    """[assoc] ASSOC_STEPS Adam steps of the first conditional under
+    ``filter_impl="associative"`` (float32, autograd through the doubling
+    levels) from the seeded start; its first value is held against the
+    kernel path's objective at the same parameters."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.gp.dtc import dtc_objective
+    from gpar_at_scale_torch.models.gpar import (
+        GPARConfig,
+        _conditional_bound,
+        _select_pseudo_points,
+        fit_conditional,
+    )
+
+    f32 = torch.float32
+    cfg = GPARConfig(backend="scaled", filter_impl="associative", num_pseudo_points=M, dtype=f32,
+                     optimizer="adam", max_opt_steps=ASSOC_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    _sync(_DEV)
+    t0 = time.perf_counter()
+    fit = fit_conditional(None, t[:n], Y[:n, :1], Y[:n, 1], cfg, init_params=params[1],
+                          device=t.device)
+    _sync(_DEV)
+    secs, peak = time.perf_counter() - t0, _peak_gib()
+    X = Y[:n, :1]
+    kcfg = GPARConfig(backend="scaled", filter_impl="pallas", num_pseudo_points=M, dtype=f32)
+    with torch.no_grad():
+        v_k = -float(_conditional_bound(kcfg, t[:n], X, Y[:n, 1], _select_pseudo_points(X, M))(
+            dtc_objective, params[1].to(f32))) / n
+    trace = (fit.opt.trace.double() / n).cpu().numpy()
+    gap = abs(float(trace[0]) - v_k)
+    ok_ = bool(np.isfinite(trace).all() and torch.isfinite(fit.params).all()) and gap <= ASSOC_VALUE_ATOL
+    _log(f"[assoc] {ASSOC_STEPS} Adam steps under filter_impl='associative', N={n} M={M}: nll/N "
+         f"{[round(float(x), 8) for x in trace]}; start vs the kernel path {v_k:.8f}, |diff| "
+         f"{gap:.2e} (atol {ASSOC_VALUE_ATOL:.0e}) {'ok' if ok_ else 'FAIL'}; {secs:.3f} s "
+         f"(training and q(u); {fit.opt.seconds / fit.opt.num_steps:.3f} s/step), peak device "
+         f"memory {peak:.2f} GiB")
+    if not ok_:
+        failures.append("[assoc] the associative Adam run failed its check")
+
+
+def assoc_phase(t, Y, params, failures):
+    """[assoc]: the engines against the kernels, the sum-kernel conditional,
+    the associative Adam steps, all at the chain's N."""
+    assoc_engines(t, Y, params, failures)
+    assoc_sum_conditional(t, Y, params, t.shape[0], failures)
+    assoc_adam(t, Y, params, t.shape[0], failures)
+
+
+def mc_check(model, t_star, mu, seed, failures):
+    """[mc] The Monte-Carlo predictive (``predict_scaled(num_samples=100,
+    generator=...)``) of the served chain's last conditional, at the
+    request's inputs (the predicted means of the outputs before it), against
+    its analytic predictive.  The f_x part of each variance is read off
+    against the variance at eps = m_eps (the smoother's own), which both
+    share.  Then the request's draws, whitened, and the body at sigma points
+    (MC_BODY_RTOL above)."""
+    import torch
+
+    from gpar_at_scale_torch.gp.dtc import _predict_scaled, predict_scaled
+    from gpar_at_scale_torch.utils.psd import solve_upper
+
+    c = model.conditionals[-1]
+    time_k, out_k, nv = c._kernels()
+    args = (out_k, time_k, c.qu, c.X_prev, c.t, c.y, t_star, mu[:, :-1].contiguous(), nv)
+    dtype = c.cfg.dtype
+
+    def request(**kw):
+        torch.cuda.reset_peak_memory_stats()
+        _sync(_DEV)
+        t0 = time.perf_counter()
+        pred = predict_scaled(*args, dtype=dtype, **kw)
+        _sync(_DEV)
+        return pred, time.perf_counter() - t0, _peak_gib()
+
+    an, s_an, m_an = request()
+    mc, s_mc, m_mc = request(num_samples=MC_SAMPLES,
+                             generator=torch.Generator(device=_DEV).manual_seed(seed))
+    base = _predict_scaled(*args, eps=c.qu.m_eps[:, None], dtype=dtype)
+    fx_an = (an.var.double() - base.var.double())
+    fx_mc = (mc.var.double() - base.var.double())
+    z = float(((mc.mean.double() - an.mean.double()).abs() / torch.sqrt(fx_an / MC_SAMPLES)).max())
+    rel = float(((fx_mc - fx_an).abs() / fx_an).max())
+    rel_tol = MC_Z * math.sqrt(2.0 / (MC_SAMPLES - 1))
+    finite = bool(torch.isfinite(mc.mean).all() and torch.isfinite(mc.var).all())
+    ok_ = finite and mc.mean.shape == an.mean.shape and z <= MC_Z and rel <= rel_tol
+    _log(f"[mc] last conditional, N={c.t.shape[0]} N*={t_star.shape[0]} M={M} S={MC_SAMPLES} "
+         f"({dtype}): request {s_mc:.3f} s, peak {m_mc:.2f} GiB (the analytic request {s_an:.3f} s, "
+         f"{m_an:.2f} GiB); max |mean - analytic| / sqrt(rowsum(H^2)/S) {z:.3f} (max {MC_Z}); "
+         f"f_x variance {float(fx_mc.mean()):.4e} vs {float(fx_an.mean()):.4e} on average, max rel "
+         f"{rel:.3f} (max {rel_tol:.3f}); finite {finite} {'ok' if ok_ else 'FAIL'}")
+    # the request's draws (the same generator state), whitened
+    eps = c.qu.sample_eps(torch.Generator(device=_DEV).manual_seed(seed), MC_SAMPLES)
+    xi = (c.qu.L_D.T @ (eps - c.qu.m_eps[:, None])).double()
+    k = xi.numel()
+    xi_mean, xi_sq = float(xi.mean()), float((xi * xi).mean())
+    draws_ok = (abs(xi_mean) <= MC_Z / math.sqrt(k)
+                and abs(xi_sq - 1.0) <= MC_Z * math.sqrt(2.0 / k))
+    # the body at sigma points: sample mean m_eps, biased covariance D^-1
+    m = c.qu.m_eps.shape[0]
+    eye = torch.eye(m, dtype=c.qu.L_D.dtype, device=c.qu.L_D.device)
+    sig = c.qu.m_eps[:, None] + math.sqrt(m) * solve_upper(c.qu.L_D, torch.cat([eye, -eye], 1))
+    body = _predict_scaled(*args, eps=sig, dtype=dtype)
+    fx_max = float(fx_an.max())
+    body_var = float((body.var.double() - an.var.double()).abs().max()) / fx_max
+    body_mean = float((body.mean.double() - an.mean.double()).abs().max()) / math.sqrt(fx_max)
+    body_ok = body_var <= MC_BODY_RTOL and body_mean <= MC_BODY_RTOL
+    _log(f"[mc] the request's {m} x {MC_SAMPLES} draws whitened: mean {xi_mean:.4f} (|.| max "
+         f"{MC_Z / math.sqrt(k):.4f}), mean square {xi_sq:.4f} (1 +- {MC_Z * math.sqrt(2.0 / k):.4f}); "
+         f"the body at {2 * m} sigma points against the analytic predictive: max |var diff| / max "
+         f"rowsum(H^2) {body_var:.2e}, max |mean diff| / sqrt(max rowsum(H^2)) {body_mean:.2e} (max "
+         f"{MC_BODY_RTOL} each) {'ok' if draws_ok and body_ok else 'FAIL'}")
+    if not (ok_ and draws_ok and body_ok):
+        failures.append("[mc] the Monte-Carlo predictive disagrees with the analytic one")
+
+
+def api_phase(seed, failures):
+    """[api] The reference-named pipeline on ``generate_big_dataset(seed=0)``
+    (8496 observed times, 5 gaps): ``get_sde_predictions`` for its first
+    output, then ``get_gpar_scaled_predictions`` for its second given the
+    first's predicted means (50 pseudo-inputs, 50 L-BFGS steps, 100
+    samples), SMSE against the true curves within the data's range.  Above
+    DENSE_N_MAX both whiten on the float32 kernels; the scaled end point's
+    objective is printed by the float64 blocked engine beside them."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch import api
+    from gpar_at_scale_torch.data.toy import generate_big_dataset
+    from gpar_at_scale_torch.gp.dtc import dtc_objective
+    from gpar_at_scale_torch.kernels import Matern52
+    from gpar_at_scale_torch.utils.params import pack_gp, pack_gpar
+
+    ds = generate_big_dataset(seed=0)
+    x, y1, y2 = ds.x, ds.y_obs[:, 0], ds.y_obs[:, 1]
+    n = x.shape[0]
+    grid, truth = ds.x_true[::API_STRIDE], ds.y_true[::API_STRIDE]
+    inside = grid <= x.max()
+    f64 = torch.float64
+    start_gp = pack_gp(*(torch.tensor(v, dtype=f64) for v in (0.3, 1.0, 0.1)))
+    start = pack_gpar(*(torch.tensor(v, dtype=f64) for v in (0.5, 1.0, 1.0, 1.0, 0.1)))
+    for k in _scan_kernels():
+        k.launches = 0
+    _sync(_DEV)
+    t0 = time.perf_counter()
+    mu1, var1 = api.get_sde_predictions(None, x, y1, grid, init_log_params=start_gp,
+                                        max_opt_steps=API_STEPS, device=_DEV)
+    _sync(_DEV)
+    s_sde = time.perf_counter() - t0
+    V = y1[:, None]
+    Z = V[np.linspace(0, n - 1, API_M).astype(np.int64)]
+    ends = []
+    optim = api.get_optim_scaled_gpar_params
+
+    def kept(*a, **kw):  # the end point, read around the pipeline's own call
+        ends.append(optim(*a, **kw))
+        return ends[-1]
+
+    api.get_optim_scaled_gpar_params = kept
+    try:
+        t0 = time.perf_counter()
+        mu2, sd2 = api.get_gpar_scaled_predictions(
+            torch.Generator(device=_DEV).manual_seed(seed), V, Z, x, y2, grid, mu1[:, None],
+            init_log_params=start, max_opt_steps=API_STEPS, num_samples=MC_SAMPLES, device=_DEV)
+        _sync(_DEV)
+        s_scaled = time.perf_counter() - t0
+    finally:
+        api.get_optim_scaled_gpar_params = optim
+    launches = {k.name: k.launches for k in _scan_kernels()}
+    smse = [float(np.mean((m.double().cpu().numpy()[inside] - truth[inside, i]) ** 2)
+                  / np.var(truth[inside, i])) for i, m in enumerate((mu1, mu2))]
+    finite = all(bool(torch.isfinite(a).all()) for a in (mu1, var1, mu2, sd2))
+    t_s, V_s, y_s, Z_s = api._scaled_data(V, Z, x, y2, _DEV)
+    values = {}
+    for name, fn in (("kernels", None), ("float64 blocked", "blocked")):
+        time_k, out_k, lgssm, nv = api._scaled_model(torch.tensor(ends[0], dtype=f64, device=_DEV),
+                                                     t_s, Matern52, Matern52)
+        with torch.no_grad():
+            values[name] = float(dtc_objective(out_k, lgssm, V_s, Z_s, y_s, uu_ridge=nv, filter_fn=fn,
+                                               time_kernel=time_k, t=t_s))
+    ok_ = finite and mu2.shape == (grid.shape[0],) and all(v > 0 for v in launches.values())
+    _log(f"[api] get_sde_predictions y1 N={n}: {s_sde:.3f} s, SMSE {smse[0]:.4f}; "
+         f"get_gpar_scaled_predictions y2 | y1 (M={API_M}, {API_STEPS} L-BFGS steps, "
+         f"{MC_SAMPLES} samples): {s_scaled:.3f} s, SMSE {smse[1]:.4f} on {int(inside.sum())} "
+         f"test times in the data's range; finite {finite}; end point "
+         f"{[round(v, 6) for v in ends[0]]}, DTC bound there: kernels {values['kernels']:.6f}, "
+         f"float64 blocked {values['float64 blocked']:.6f}; scan kernel launches {launches} "
+         f"{'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[api] the reference-named pipeline failed its check")
+    return launches
+
+
+def parallel_chain(t, Y, params, seq_model, seq_s, failures):
+    """[parallel] ``fit_gpar(parallel=True)`` on the chain with the main
+    path's configuration (10 Adam steps per output through the kernels),
+    against the sequential fit of phase 6 from the same parameters.
+    Returns the scan kernels' launches."""
+    import torch
+
+    from gpar_at_scale_torch.models import GPARConfig, fit_gpar
+
+    cfg = GPARConfig(backend="scaled", filter_impl="pallas", num_pseudo_points=M,
+                     dtype=torch.float32, optimizer="adam", max_opt_steps=TRAIN_STEPS)
+    for k in _scan_kernels():
+        k.launches = 0
+    _sync(_DEV)
+    t0 = time.perf_counter()
+    par = fit_gpar(None, t, Y, cfg, init_params=params, parallel=True, device=t.device)
+    _sync(_DEV)
+    secs = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _scan_kernels()}
+    gaps = [float((a.params - b.params).abs().max())
+            for a, b in zip([par.first] + par.conditionals, [seq_model.first] + seq_model.conditionals)]
+    widths = [c.Z.shape[1] for c in par.conditionals]
+    ok_ = (max(gaps) <= PAR_ATOL and widths == list(range(1, Y.shape[1]))
+           and all(v > 0 for v in launches.values()))
+    _log(f"[parallel] fit_gpar(parallel=True) P={Y.shape[1]} N={t.shape[0]} M={M}, {TRAIN_STEPS} "
+         f"Adam steps per output: {secs:.3f} s (the sequential fit {seq_s:.3f} s); max |log-param "
+         f"parallel - sequential| per output {[f'{g:.1e}' for g in gaps]} (atol {PAR_ATOL:.0e}); "
+         f"launches {launches} {'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[parallel] the parallel fit of the chain disagrees with the sequential one")
+    return launches
+
+
+def eeg_parallel(seq_ends, failures):
+    """[parallel] The EEG chain's conditionals fitted with
+    ``fit_conditionals_parallel`` on the channels in chain order (F3-F6
+    observed, then FZ, F1, F2: six conditionals) under "on" (float32, K6a-c) and "off" (float64), the example's
+    starts and L-BFGS; FZ, F1 and F2 by their float64 objective at the end
+    point beside the sequential fits' ([eeg]).  Returns K6a-c's launches
+    under "on"."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.data.eeg import TRAIN_POINTS, generate_synthetic_eeg
+    from gpar_at_scale_torch.models.gpar import GPARConfig, fit_conditionals_parallel
+    from gpar_at_scale_torch.utils.params import pack_gpar
+
+    ds = generate_synthetic_eeg(seed=0)
+    n = TRAIN_POINTS
+    order = [ds.channels.index(c) for c in EEG_OBSERVED + EEG_PREDICTED]
+    on_launches = None
+    try:
+        for mode, dtype in (("on", torch.float32), ("off", torch.float64)):
+            _set_dense_mode(mode)
+            for k in _dense():
+                k.launches = 0
+            as_dev = lambda a: torch.as_tensor(np.asarray(a)).to(_DEV, dtype)  # noqa: E731
+            cfg = GPARConfig(backend="scaled", num_pseudo_points=n, max_opt_steps=EEG_STEPS,
+                             dtype=dtype)
+            start = _tensor_params(EEG_COND_START, pack_gpar, _DEV, dtype)
+            _sync(_DEV)
+            t0 = time.perf_counter()
+            conds = fit_conditionals_parallel(None, as_dev(ds.t[:n]), as_dev(ds.Y[:n, order]), cfg,
+                                              init_params=[start] * (len(order) - 1), device=_DEV)
+            _sync(_DEV)
+            secs = time.perf_counter() - t0
+            launches = _dense_counts()
+            rows = []
+            for ch, fit in zip(EEG_PREDICTED, conds[-len(EEG_PREDICTED):]):
+                par, seq = _nll64(fit), seq_ends[mode][("scaled", ch)]
+                rows.append(f"{ch} {par:.4f} (sequential {seq:.4f})")
+                if not math.isfinite(par):
+                    failures.append(f"[parallel] EEG {mode} {ch}: the end point's objective is not finite")
+            _log(f"[parallel] EEG scaled conditionals under '{mode}' ({dtype}), six with "
+                 f"fit_conditionals_parallel: {secs:.3f} s, K6a/K6b/K6c launches {launches}; float64 objective at the "
+                 f"end points: " + ", ".join(rows))
+            if mode == "on":
+                on_launches = launches
+                if not all(c > 0 for c in launches):
+                    failures.append(f"[parallel] EEG under 'on' did not launch every K6 kernel: {launches}")
+            elif any(launches):
+                failures.append(f"[parallel] dense kernels launched under 'off': {launches}")
+    finally:
+        _set_dense_mode("off")
+    return on_launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1487,6 +1953,8 @@ def main(argv=None):
 
     profile_phase("conditioning", lambda: fit_gpar(None, t, Y, cfg, init_params=params))
     profile_phase("request", lambda: model.predict(t_star))
+    # the Monte-Carlo predictive of the served chain's last conditional
+    mc_check(model, t_star, mu, args.seed, failures)
     del model
 
     # 4. reference on a small input
@@ -1496,19 +1964,35 @@ def main(argv=None):
     grad_check(args.seed, failures)
 
     # 6. the main path: train the chain, answer 3 requests; one step traced
-    model, train_launches = train_chain(t, Y, t_star, lat_star, sn, params, failures)
-    for key, k in zip(("K1", "K2", "K3", "K4a", "K4b"), scan):
-        records[key]["launches"] = train_launches[k.name]
+    model, train_launches, train_s = train_chain(t, Y, t_star, lat_star, sn, params, failures)
     traced_train_step(model, failures)
     # 7. the start of the training run again at full N, in float64
     full_n_check(model, params, failures)
+    # 10. the parallel fit of the chain beside phase 6's sequential one
+    par_launches = parallel_chain(t, Y, params, model, train_s, failures)
     del model
 
     # 8. the dense path's main path: the EEG example through K6a-c
-    for key, n in zip(("K6a", "K6b", "K6c"), eeg_phase(failures)):
-        records[key]["launches"] = n
+    eeg_launches, seq_ends = eeg_phase(failures)
+    # 10. the EEG chain's conditionals fitted in parallel under "on" and "off"
+    eeg_par_launches = eeg_parallel(seq_ends, failures)
+    for key, a, b in zip(("K6a", "K6b", "K6c"), eeg_launches, eeg_par_launches):
+        records[key]["launches"] = a
+        records[key]["launches_by_path"] = {"eeg": a, "parallel": b}
     # 9. bench.py's pipeline under "on" and "off"
     eeg_bench(failures)
+    # 11. the reference-named api on the big toy dataset
+    api_launches = api_phase(args.seed, failures)
+    for key, k in zip(("K1", "K2", "K3", "K4a", "K4b"), scan):
+        records[key]["launches"] = train_launches[k.name]
+        records[key]["launches_by_path"] = {path: counts[k.name] for path, counts in (
+            ("train", train_launches), ("parallel", par_launches), ("api", api_launches))}
+    _log("[kernels] launches on the paths: training " + str(train_launches) + "; parallel fit "
+         + str(par_launches) + "; api " + str(api_launches) + "; EEG 'on' K6a/K6b/K6c "
+         + f"{eeg_launches}, in parallel {eeg_par_launches}")
+    # 12. the associative-scan engine, last: its autograd takes the most memory
+    torch.cuda.empty_cache()
+    assoc_phase(t, Y, params, failures)
 
     keys = ("K1", "K2", "K3", "K4a", "K4b", "K6a", "K6b", "K6c")
     print(json.dumps({"kernels": [records[k] for k in keys]}), flush=True)

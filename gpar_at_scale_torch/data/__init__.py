@@ -7,8 +7,10 @@ from gpar_at_scale_torch.data.eeg import (
     load_eeg,
     load_eeg_csv,
 )
+from gpar_at_scale_torch.data.toy import ToyDataset, generate_big_dataset, generate_small_dataset
 
 __all__ = [
     "CHAIN_ORDER", "TRAIN_POINTS", "EEGDataset", "generate_synthetic_eeg", "load_eeg",
-    "load_eeg_csv", "make_chain_data",
+    "load_eeg_csv", "make_chain_data", "ToyDataset", "generate_big_dataset",
+    "generate_small_dataset",
 ]

@@ -26,29 +26,37 @@ hyperparameters:
 * ``"pallas"`` -- the CUDA blocked-scan kernels K1/K2/K3 forward and the
   suffix-scan kernels K4a/K4b backward (``ops/whiten.py::whiten_gram``,
   ``ops/grad.py``); the name is the JAX package's, so one configuration
-  drives both.
+  drives both.  SDEs the kernels cannot take (``ops.kalman.
+  pallas_supported``: state dim > 3 or H != e1, i.e. sum kernels) go to the
+  associative-scan filter instead, as in the JAX package; the choice is
+  made from the SDE's shape before anything is launched.
 * ``"blocked"`` -- the same closed-form gradient over the tensor-code
   blocked filter (``ssm/blocked_grad.py``), for any state dim and emission
   row, in the working precision.
 * a callable ``(lgssm, Y) -> FilterResult`` -- e.g. the sequential
-  ``ssm.kalman.kalman_filter``; autograd.
+  ``ssm.kalman.kalman_filter`` or the associative-scan
+  ``ssm.pkalman.parallel_filter``; autograd.
 * ``None`` -- auto: ``"dense"`` when (time_kernel, t) are given and
   N <= DENSE_N_MAX, the kernel path above that.  The JAX package picks its
   XLA ``"blocked"`` engine there because its TPU compile service stalled on
   the kernel path; here ``"blocked"`` is tensor code, bound by launches.
 
-The two scan engines form the whitened Gram in float64 and run the M x M
-algebra after it in float64 (a float32 Gram at N = 1e6 can make G_b + K_uu
-indefinite), so they return float64 intermediates.  The dense engine stays
+Every engine but the dense one forms the whitened Gram in float64 and
+runs the M x M algebra after it in float64, so they return float64
+intermediates.  The JAX package keeps the filter engines' Gram in the
+working precision; in float32 on an H100, with the Gram in float32 the
+associative engine missed the float64 gradient of a chain conditional by
+1% on its small components at N = 1e5 and could not factor G_b + K_uu at
+N = 1e6.  The dense engine stays
 in the working precision, as in the JAX package: a float32 factorization
 that fails there raises, and the L-BFGS loop (``inference/optimize.py``)
 treats that point as outside the objective's domain, as optax's line
 search treats the NaN the JAX package gets there.
 
-Not in the port yet: the Monte-Carlo predictive, the ``smooth_fn`` argument
-of ``predict_scaled`` (the port dispatches on N_all alone) and the
-iid-noise variants (``dtc_objective_iid``, ``titsias_elbo``,
-``predict_sparse_iid``); see ROADMAP.
+``predict_scaled`` has no ``smooth_fn`` argument: the port dispatches on
+N_all alone.  The iid-noise sparse GP (``dtc_objective_iid``,
+``titsias_elbo``, ``predict_sparse_iid``) factors and solves through
+``utils/psd.py``, so it takes K6a-c under ``engine.pallas_dense``.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ from gpar_at_scale_torch.utils.psd import (
     default_jitter,
     logdet_from_chol,
     solve_lower,
+    solve_upper,
 )
 
 _LOG_2PI = 1.8378770664093453
@@ -137,32 +146,44 @@ def _whiten_all(
     if filter_fn is None and time_kernel is not None:
         filter_fn = "dense" if n <= DENSE_N_MAX else "pallas"
 
-    if filter_fn in ("pallas", "blocked"):
-        if filter_fn == "pallas":
-            from gpar_at_scale_torch.ops.whiten import whiten_gram
-        else:
-            from gpar_at_scale_torch.ssm.blocked_grad import whiten_gram
-
-        G, logdet_noise = whiten_gram(lgssm, batch)
-        # float64 factor with the working precision's relative jitter, as
-        # the JAX package applies to its float32 K_uu.
-        L_uu = cholesky_psd(Kuu.double(), default_jitter(Kuu.dtype))
-        aa, g, Gb = G[0, 0], G[1:, 0], G[1:, 1:]
-    elif filter_fn == "dense":
+    if filter_fn == "dense":
         if time_kernel is None or t is None:
             raise ValueError("dense whitening requires time_kernel and t")
         white, logdet_noise = dense_whiten(time_kernel, t, lgssm.R, batch)
         L_uu = cholesky_psd(Kuu)
         aa, g, Gb = _gram_from_white(white)
     else:
-        if filter_fn is None:
-            filter_fn = kalman_filter
-        res = filter_fn(lgssm, batch)
-        white = res.v / torch.sqrt(res.S)[:, None]
-        L_uu = cholesky_psd(Kuu)
-        aa, g, Gb = _gram_from_white(white)
-        logdet_noise = torch.log(res.S).sum()
+        G, logdet_noise = _scan_gram(filter_fn, lgssm, batch)
+        # float64 factor with the working precision's relative jitter, as
+        # the JAX package applies to its float32 K_uu.
+        L_uu = cholesky_psd(Kuu.double(), default_jitter(Kuu.dtype))
+        aa, g, Gb = G[0, 0], G[1:, 0], G[1:, 1:]
     return DTCIntermediates(aa=aa, g=g, Gb=Gb, L_uu=L_uu, logdet_noise=logdet_noise)
+
+
+def _scan_gram(filter_fn, lgssm: LGSSM, batch):
+    """(G, logdet) in float64 of the M + 1 columns through a scan engine:
+    ``"blocked"`` and ``"pallas"`` by their closed-form gradients, a filter
+    callable (None: the sequential filter) by autograd.  ``"pallas"`` sends
+    the SDEs the kernels cannot take to the associative-scan filter, as the
+    JAX package does."""
+    if filter_fn == "blocked":
+        from gpar_at_scale_torch.ssm.blocked_grad import whiten_gram
+
+        return whiten_gram(lgssm, batch)
+    if filter_fn == "pallas":
+        from gpar_at_scale_torch.ops.kalman import pallas_supported
+
+        if pallas_supported(lgssm):
+            from gpar_at_scale_torch.ops.whiten import whiten_gram
+
+            return whiten_gram(lgssm, batch)
+        from gpar_at_scale_torch.ssm.pkalman import parallel_filter
+
+        filter_fn = parallel_filter
+    res = (filter_fn or kalman_filter)(lgssm, batch)
+    W = (res.v / torch.sqrt(res.S)[:, None]).double()
+    return W.T @ W, torch.log(res.S).double().sum()
 
 
 def _lam_chol(inter: DTCIntermediates):
@@ -209,6 +230,13 @@ class QU(NamedTuple):
     L_D: torch.Tensor  # (M, M) chol(D), D = A A^T + I
     L_uu: torch.Tensor  # (M, M) chol(K_uu)
     Z: torch.Tensor  # (M, D) inducing inputs
+
+    def sample_eps(self, generator: torch.Generator, num_samples: int):
+        """(M, num_samples) draws eps ~ N(m_eps, D^-1): m_eps + L_D^-T xi,
+        with xi standard normal from ``generator`` (drawn on its device)."""
+        xi = torch.randn((self.m_eps.shape[0], num_samples), generator=generator,
+                         dtype=self.m_eps.dtype, device=generator.device)
+        return self.m_eps[:, None] + solve_upper(self.L_D, xi.to(self.m_eps.device))
 
 
 def compute_q_u(
@@ -314,26 +342,47 @@ def predict_scaled(
     mean=0.0,
     *,
     num_samples: int = 0,
+    generator: torch.Generator = None,
     dtype=torch.float64,
 ) -> ScaledPrediction:
-    """Exact analytic posterior predictive of f* = f_x* + f_t* at
-    (t_star, V_star): splice the test times into the series with infinite
-    observation noise and smooth, using that the smoother is linear in its
-    observations:
+    """Posterior predictive of f* = f_x* + f_t* at (t_star, V_star): splice
+    the test times into the series with infinite observation noise, subtract
+    f_x, smooth the rest with the temporal LGSSM, add f_x back.
+
+    With ``num_samples == 0`` the predictive is exact, since the smoother is
+    linear in its observations:
 
         E[f*]   = fx_bar + S (y - fx_bar)
         Var[f*] = rowsum(((I - S) G)^2) + diag(P_smooth)
 
-    with fx_bar = K_*u L^-T m_eps and G = K_*u L^-T L_D^-T.  The q(u)
-    factors are cast to ``dtype``.  Up to DENSE_N_MAX spliced steps,
-    K_*u L^-T and Phi L_D^-T are two triangular solves in ``dtype``, as in
-    the JAX package (K6b under the dense switch); above it they are
+    with fx_bar = K_*u L^-T m_eps and G = K_*u L^-T L_D^-T.  With
+    ``num_samples = S > 0`` it is the reference's Monte-Carlo estimate: S
+    draws eps ~ q(eps) from ``generator`` (``QU.sample_eps``; without one it
+    raises ``ValueError``), f_x = K_*u L^-T eps, one smoothing pass over the
+    S columns y - f_x, and the mean and variance of f_x + the smoothed mean
+    over the draws, plus the smoother's own variance diag(P_smooth) (the JAX
+    package's repair of the reference's variance).
+
+    The q(u) factors are cast to ``dtype``.  Up to DENSE_N_MAX spliced
+    steps, K_*u L^-T and Phi L_D^-T are two triangular solves in ``dtype``,
+    as in the JAX package (K6b under the dense switch); above it they are
     products with float64 inverse factors, since a triangular solve with
-    N_all ~ 1e6 right-hand sides takes seconds on the card.  The
-    Monte-Carlo variant of the JAX package (``num_samples > 0``) is not in
-    this slice."""
+    N_all ~ 1e6 right-hand sides takes seconds on the card."""
+    eps = None
     if num_samples > 0:
-        raise NotImplementedError("the Monte-Carlo predictive is not ported yet (ROADMAP)")
+        if generator is None:
+            raise ValueError("num_samples > 0 requires a torch.Generator")
+        eps = qu.sample_eps(generator, num_samples)
+    return _predict_scaled(out_kernel, time_kernel, qu, V, t, y, t_star, V_star, noise_var,
+                           mean, eps=eps, dtype=dtype)
+
+
+def _predict_scaled(
+    out_kernel, time_kernel, qu: QU, V, t, y, t_star, V_star, noise_var, mean=0.0, *,
+    eps=None, dtype=torch.float64,
+) -> ScaledPrediction:
+    """``predict_scaled``'s body: analytic with ``eps=None``, else the
+    Monte-Carlo estimate over the given (M, S) draws of eps."""
     V, V_star = _as_2d(V).to(dtype), _as_2d(V_star).to(dtype)
     t, t_star, y = t.to(dtype), t_star.to(dtype), y.to(dtype)
     n = t.shape[0]
@@ -345,19 +394,78 @@ def predict_scaled(
     lgssm = lgssm_of(time_kernel, t_s, noise_s, dtype)
 
     K_su = out_kernel(V_s, qu.Z.to(dtype))  # (N_all, M)
-    if t_s.shape[0] <= DENSE_N_MAX:
+    dense = t_s.shape[0] <= DENSE_N_MAX
+    if dense:
         Phi = solve_lower(qu.L_uu.to(dtype), K_su.T).T  # K_*u L_uu^-T
-        G = solve_lower(qu.L_D.to(dtype), Phi.T).T  # Phi L_D^-T; Cov[f_x] = G G^T
     else:
         # products with the inverse factors, inverted in float64 on the
         # M x M side (milliseconds where the solves take seconds)
         Phi = K_su @ _tri_inverse(qu.L_uu).to(dtype).T
-        G = Phi @ _tri_inverse(qu.L_D).to(dtype).T
-    fx_bar = Phi @ qu.m_eps.to(dtype)
-    sm = smooth_fn(lgssm, torch.cat([(y_s - fx_bar)[:, None], G], dim=1))
-    mean_all = fx_bar + sm.mean[:, 0]
-    H = G - sm.mean[:, 1:]  # (I - S) G
-    var_all = (H * H).sum(1) + sm.var
+    if eps is None:
+        if dense:
+            G = solve_lower(qu.L_D.to(dtype), Phi.T).T  # Phi L_D^-T; Cov[f_x] = G G^T
+        else:
+            G = Phi @ _tri_inverse(qu.L_D).to(dtype).T
+        fx_bar = Phi @ qu.m_eps.to(dtype)
+        sm = smooth_fn(lgssm, torch.cat([(y_s - fx_bar)[:, None], G], dim=1))
+        mean_all = fx_bar + sm.mean[:, 0]
+        H = G - sm.mean[:, 1:]  # (I - S) G
+        var_all = (H * H).sum(1) + sm.var
+    else:
+        fx = Phi @ eps.to(dtype)  # (N_all, S)
+        sm = smooth_fn(lgssm, y_s[:, None] - fx)
+        f = fx + sm.mean
+        mean_all = f.mean(1)
+        var_all = f.var(1, correction=0) + sm.var
     mean_star = (mean + mean_all)[inv_order][n:]
     var_star = var_all[inv_order][n:]
     return ScaledPrediction(mean=mean_star, var=torch.clamp(var_star, min=0.0))
+
+
+# ---------------------------------------------------------------------------
+# The iid-noise sparse GP (no temporal structure): the DTC bound, the Titsias
+# ELBO and the projected-process predictive
+# ---------------------------------------------------------------------------
+
+
+def dtc_objective_iid(kernel: Kernel, V, Z, y, noise_var, mean=0.0):
+    """Collapsed DTC bound with iid noise s2 I: log N(y | m, Q_ff + s2 I),
+    Q_ff = K_fu K_uu^-1 K_uf, through the M x M system (O(N M^2))."""
+    V, Z = _as_2d(V), _as_2d(Z)
+    n = y.shape[0]
+    s2 = torch.as_tensor(noise_var, dtype=y.dtype, device=y.device)
+    L_uu = cholesky_psd(kernel(Z, Z))
+    A = solve_lower(L_uu, kernel(V, Z).T) / torch.sqrt(s2)  # (M, N)
+    Lam = A @ A.T + torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    L_lam = torch.linalg.cholesky(Lam)
+    r = (y - mean) / torch.sqrt(s2)
+    w = solve_lower(L_lam, A @ r)
+    logdet = n * torch.log(s2) + logdet_from_chol(L_lam)
+    quad = (r * r).sum() - (w * w).sum()
+    return -0.5 * (n * _LOG_2PI + logdet + quad)
+
+
+def titsias_elbo(kernel: Kernel, V, Z, y, noise_var, mean=0.0):
+    """Titsias (2009) collapsed variational bound: the DTC bound minus
+    trace(K_ff - Q_ff) / (2 s2)."""
+    V, Z = _as_2d(V), _as_2d(Z)
+    U = solve_lower(cholesky_psd(kernel(Z, Z)), kernel(V, Z).T)  # (M, N)
+    trace_term = (kernel.diag_part(V) - (U * U).sum(0)).sum() / (2.0 * noise_var)
+    return dtc_objective_iid(kernel, V, Z, y, noise_var, mean) - trace_term
+
+
+def predict_sparse_iid(kernel: Kernel, V, Z, y, noise_var, V_star, mean=0.0):
+    """Projected-process predictive with iid noise: (mean, latent variance)
+    at V_star, mean = m + K_*u L^-T m_eps and
+    var = k_** - |K_*u L^-T|^2 + |K_*u L^-T L_D^-T|^2."""
+    V, Z, V_star = _as_2d(V), _as_2d(Z), _as_2d(V_star)
+    s2 = torch.as_tensor(noise_var, dtype=y.dtype, device=y.device)
+    L_uu = cholesky_psd(kernel(Z, Z))
+    A = solve_lower(L_uu, kernel(V, Z).T) / torch.sqrt(s2)  # (M, N)
+    D = A @ A.T + torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    L_D = torch.linalg.cholesky(D)
+    m_eps = solve_upper(L_D, solve_lower(L_D, A @ ((y - mean) / torch.sqrt(s2))))
+    Phi = solve_lower(L_uu, kernel(V_star, Z).T).T  # K_*u L_uu^-T
+    G = solve_lower(L_D, Phi.T).T
+    var = kernel.diag_part(V_star) - (Phi * Phi).sum(1) + (G * G).sum(1)
+    return mean + Phi @ m_eps, torch.clamp(var, min=0.0)

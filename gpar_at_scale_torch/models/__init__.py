@@ -4,6 +4,7 @@ from gpar_at_scale_torch.models.gpar import (
     FittedGPAR,
     GPARConfig,
     fit_conditional,
+    fit_conditionals_parallel,
     fit_first_output,
     fit_gpar,
 )
@@ -14,6 +15,7 @@ __all__ = [
     "FittedGPAR",
     "GPARConfig",
     "fit_conditional",
+    "fit_conditionals_parallel",
     "fit_first_output",
     "fit_gpar",
 ]

@@ -13,8 +13,9 @@ predicted means down the chain.
 the closed-form disturbance-smoother VJPs on the kernel path) and then
 condition: output 1 keeps its data, each conditional computes q(u) at the
 optimum.  With ``max_opt_steps = 0`` they condition on the parameters they
-are given and evaluate no objective.  The parallel fit of the conditionals
-(``parallel=True``) comes with a later slice (ROADMAP).
+are given and evaluate no objective.  ``fit_gpar(parallel=True)``, the JAX
+package's vmapped fit of the conditionals, gives the same fits here
+(``fit_conditionals_parallel``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from gpar_at_scale_torch.kernels import Matern52, gpar_kernel, time_kernel_only
 from gpar_at_scale_torch.ssm.kalman import kalman_filter
 from gpar_at_scale_torch.ssm.kalman import logpdf as ssm_logpdf
 from gpar_at_scale_torch.ssm.markov import lgssm_of
+from gpar_at_scale_torch.ssm.pkalman import parallel_filter, parallel_logpdf
 from gpar_at_scale_torch.utils.params import init_params, unpack_gp, unpack_gpar, unpack_gpar6
 
 
@@ -61,10 +63,13 @@ class GPARConfig:
                    above;
       'dense'      conditionals: the dense backend; output 1: sequential;
       'sequential' the sequential Kalman filter (numerical oracle);
+      'associative' the associative-scan filter (ssm/pkalman.py), any
+                   state dim, autograd; output 1: the same engine;
       'blocked'    the tensor-code blocked filter with the closed-form
                    gradient (ssm/blocked_grad.py), any state dim;
       'pallas'     the CUDA blocked-scan kernels K1-K3 forward and K4a/K4b
-                   backward (the JAX package's name for its TPU kernels).
+                   backward (the JAX package's name for its TPU kernels);
+                   sum-kernel SDEs take the associative engine instead.
     optimizer: 'lbfgs' | 'adam'.
     """
 
@@ -109,12 +114,10 @@ def _filter_fn_of(cfg: GPARConfig):
     """GPARConfig.filter_impl -> gp.dtc's filter_fn argument."""
     table = {
         "auto": None, "dense": "dense", "sequential": kalman_filter,
-        "blocked": "blocked", "pallas": "pallas",
+        "associative": parallel_filter, "blocked": "blocked", "pallas": "pallas",
     }
     if cfg.filter_impl not in table:
-        raise NotImplementedError(
-            f"filter_impl={cfg.filter_impl!r} is not ported yet (ROADMAP P8)"
-        )
+        raise ValueError(f"unknown filter_impl {cfg.filter_impl!r}")
     return table[cfg.filter_impl]
 
 
@@ -177,7 +180,9 @@ def _first_output_nll(cfg: GPARConfig, t, y):
     """Output 1's negative log-likelihood in its log-parameters.  'auto'
     takes the sequential filter only up to DENSE_N_MAX steps, where the JAX
     package takes it at every N: the port's sequential filter is a Python
-    loop of N steps, so longer series go through the kernels."""
+    loop of N steps, so longer series go through the kernels.  For the same
+    reason 'associative' takes the associative-scan filter here, where the
+    JAX package takes the sequential one: both compute the same function."""
     impl = cfg.filter_impl
     if impl == "auto":
         impl = "sequential" if t.shape[0] <= DENSE_N_MAX else "pallas"
@@ -191,12 +196,16 @@ def _first_output_nll(cfg: GPARConfig, t, y):
 
         def ll(k, nv):
             return blocked_loglik(lgssm_of(k, t, nv, cfg.dtype), y)
+    elif impl == "associative":
+
+        def ll(k, nv):
+            return parallel_logpdf(lgssm_of(k, t, nv, cfg.dtype), y)
     elif impl in ("sequential", "dense"):
 
         def ll(k, nv):
             return ssm_logpdf(lgssm_of(k, t, nv, cfg.dtype), y)
     else:
-        raise NotImplementedError(f"filter_impl={impl!r} is not ported yet (ROADMAP P8)")
+        raise ValueError(f"unknown filter_impl {impl!r}")
 
     def nll(p):
         l, ps, ns = unpack_gp(p)
@@ -359,6 +368,32 @@ def fit_conditional(
     )
 
 
+def fit_conditionals_parallel(
+    generator, t, Y, cfg: GPARConfig, init_params: Optional[Sequence] = None, *, device=None
+) -> List[FittedConditional]:
+    """Fit conditionals 2..P, each on its own data: conditional i on
+    (t, y_1..y_{i-1}) -> y_i.  ``init_params``: one entry (or None) per
+    conditional; ``generator`` draws the others, in chain order.
+
+    The JAX package vmaps the conditionals over features zero-padded to
+    width P - 1, with the pseudo-points at one row stride for all.  The
+    kernels are stationary and isotropic in the outputs, so the zero columns
+    leave every distance unchanged, and the stride picks rows only: each
+    conditional's padded fit is its unpadded fit, which ``fit_conditional``
+    computes.  The port runs them one after the other: its L-BFGS line
+    search is per conditional, the scan kernels take one series per call and
+    the optimizer syncs once per step, so a batched step would share nothing
+    yet (ROADMAP)."""
+    device = resolve_device(device)
+    Y = _as(Y, cfg, device)
+    P = Y.shape[1]
+    init_params = list(init_params) if init_params is not None else [None] * (P - 1)
+    return [
+        fit_conditional(generator, t, Y[:, :i], Y[:, i], cfg, init_params[i - 1], device=device)
+        for i in range(1, P)
+    ]
+
+
 # ---------------------------------------------------------------------------
 # The chained model
 # ---------------------------------------------------------------------------
@@ -402,21 +437,16 @@ def fit_gpar(
     device=None,
 ) -> FittedGPAR:
     """Fit the whole chain: output 1 on time, output i on
-    (t, y_1..y_{i-1}), one after the other.  ``generator`` (a
-    ``torch.Generator`` or None) draws the U(0, 1) log-parameters of outputs
-    whose ``init_params`` entry is None.  Runs on the card unless ``device``
-    says otherwise."""
-    if parallel:
-        raise NotImplementedError(
-            "parallel=True (fit_conditionals_parallel) is not ported yet (ROADMAP)"
-        )
+    (t, y_1..y_{i-1}).  ``generator`` (a ``torch.Generator`` or None) draws
+    the U(0, 1) log-parameters of outputs whose ``init_params`` entry is
+    None.  ``parallel`` is the JAX package's switch to its vmapped fit of
+    the conditionals, whose fits are the sequential ones
+    (``fit_conditionals_parallel``), so both settings fit the same way here.
+    Runs on the card unless ``device`` says otherwise."""
     device = resolve_device(device)
     Y = _as(Y, cfg, device)
     P = Y.shape[1]
     init_params = list(init_params) if init_params is not None else [None] * P
     first = fit_first_output(generator, t, Y[:, 0], cfg, init_params[0], device=device)
-    conditionals = [
-        fit_conditional(generator, t, Y[:, :i], Y[:, i], cfg, init_params[i], device=device)
-        for i in range(1, P)
-    ]
+    conditionals = fit_conditionals_parallel(generator, t, Y, cfg, init_params[1:], device=device)
     return FittedGPAR(first=first, conditionals=conditionals)

@@ -21,14 +21,16 @@ with the suffix scan on the card (``ops/smoother.py``, K4a/K4b):
 
 Everything on the O(N) side is float32; cotangents that arrive in float64
 from the M x M algebra are cast to float32 first.  Both take state dim
-<= 3 with H = e1 (one Matern block), as the kernels do.
+<= 3 with H = e1 (one Matern block), as the kernels do; their callers send
+every other SDE to the associative-scan engine (``logpdf_markov_pallas``
+here, ``gp/dtc.py::_whiten_all`` for the Gram).
 """
 
 from __future__ import annotations
 
 import torch
 
-from gpar_at_scale_torch.ops.kalman import _e1, _require_supported, decorrelate_blocked
+from gpar_at_scale_torch.ops.kalman import _e1, decorrelate_blocked, pallas_supported
 from gpar_at_scale_torch.ops.smoother import suffix_scan
 from gpar_at_scale_torch.ops.whiten import gram_forward
 from gpar_at_scale_torch.ssm.blocked_grad import whiten_bwd_elements, whiten_bwd_scores
@@ -51,7 +53,7 @@ class LgssmLoglik(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, A, Q, R, y):
-        lg = LGSSM(A=A, Q=Q, H=_e1(A.shape[-1], A), R=R)
+        lg = LGSSM(A=A, Q=Q, H=_e1(A.shape[-1], A), R=R, e1=True)
         ll, alpha, _, S, K, m, P = decorrelate_blocked(lg, y, return_full=True)
         ctx.save_for_backward(A, alpha, S, K, m, P)
         return ll
@@ -74,13 +76,18 @@ def lgssm_loglik(A, Q, R, y):
 
 def logpdf_markov_pallas(kernel, t, noise_var, y):
     """Kernel hyperparameters -> discretization (autograd) -> kernel-path
-    log-likelihood (closed-form VJP), float32.  Sum-kernel SDEs raise
-    ``NotImplementedError`` (ROADMAP P8), where the JAX package dispatches
-    to its associative-scan engine."""
+    log-likelihood (closed-form VJP), float32.  Dispatch, by the SDE's
+    shape alone (``pallas_supported``), as in the JAX package: sum-kernel
+    SDEs take the associative-scan engine
+    (``ssm/pkalman.py::parallel_logpdf``, autograd) and launch nothing."""
     t = torch.as_tensor(t)
     lg = lgssm_of(kernel, t.to(_F32), noise_var, _F32)
-    _require_supported(lg)
-    return lgssm_loglik(lg.A, lg.Q, lg.R.expand(lg.num_steps), torch.as_tensor(y, device=t.device))
+    y = torch.as_tensor(y, device=t.device)
+    if not pallas_supported(lg):
+        from gpar_at_scale_torch.ssm.pkalman import parallel_logpdf
+
+        return parallel_logpdf(lg, y.to(_F32))
+    return lgssm_loglik(lg.A, lg.Q, lg.R.expand(lg.num_steps), y)
 
 
 class WhitenGram(torch.autograd.Function):

@@ -22,8 +22,10 @@ keeps every SM busy in K1/K2, while phase 2 stays 14 doubling levels of one
 batched combine.
 
 The kernels unroll d <= 3 and hard-code the emission row H = e1 (a single
-Matern block).  Sum-kernel SDEs raise ``NotImplementedError``: the JAX
-package sends them to the associative-scan engine, which is ROADMAP P8.
+Matern block).  ``decorrelate_blocked`` sends every other SDE (sum kernels)
+to the associative-scan filter (``ssm/pkalman.py::parallel_filter``) with
+the same contract, as the JAX package does; the choice is made from the
+SDE's shape alone (``pallas_supported``), before anything is launched.
 
 ``phase1`` and ``phase3`` are the kernels' wrappers.  Beside them sit their
 plain PyTorch versions (``phase1_plain``, ``phase3_plain``): phases 1 and 3
@@ -62,19 +64,15 @@ def _e1(d, like):
 
 def pallas_supported(lgssm: LGSSM) -> bool:
     """True when the scan kernels can take this SSM: state dim <= 3 and
-    emission row H = e1 (one Matern block).  Reads H on the host."""
+    emission row H = e1 (one Matern block).  Takes ``lgssm.e1`` where its
+    constructor recorded it (``ssm.markov.lgssm_of`` does), else reads H
+    back to the host."""
     if lgssm.dim > 3:
         return False
+    if lgssm.e1 is not None:
+        return lgssm.e1
     h = lgssm.H.detach().cpu()
     return bool(h[0] == 1.0 and torch.all(h[1:] == 0.0))
-
-
-def _require_supported(lgssm: LGSSM) -> None:
-    if not pallas_supported(lgssm):
-        raise NotImplementedError(
-            "the blocked-scan kernels take state dim <= 3 with H = e1; sum-kernel "
-            "SDEs need the associative-scan engine (ROADMAP P8), not yet ported"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +188,29 @@ def _f32_inputs(lgssm: LGSSM, y):
     return A, Q, R, y
 
 
+def _as_f32(lgssm: LGSSM) -> LGSSM:
+    f32 = torch.float32
+    return LGSSM(A=lgssm.A.to(f32), Q=lgssm.Q.to(f32), H=lgssm.H.to(f32), R=lgssm.R.to(f32))
+
+
+def _decorrelate_fallback(lgssm: LGSSM, y, return_gains, return_moments, return_full):
+    """``decorrelate_blocked``'s contract through the associative-scan
+    filter, for the SDEs the kernels cannot take (the JAX package's
+    ``_decorrelate_fallback``)."""
+    from gpar_at_scale_torch.ssm.pkalman import parallel_filter
+
+    lg = _as_f32(lgssm)
+    y = torch.as_tensor(y, device=lg.A.device).to(torch.float32).reshape(lg.num_steps)
+    res = parallel_filter(lg, y)
+    S = res.S
+    out = (res.ll[0], res.v[:, 0] / torch.sqrt(S), torch.log(S).sum())
+    if return_gains or return_full:
+        out += (S, (res.Pp @ lg.H) / S[:, None])
+    if return_moments or return_full:
+        out += (res.m[:, :, 0], res.P)
+    return out
+
+
 def decorrelate_blocked(
     lgssm: LGSSM,
     y,
@@ -207,9 +228,12 @@ def decorrelate_blocked(
     (ll, alpha, logdet, S, K, m, P).  The scalars are summed per block in
     float32 and across blocks in float64.
 
-    Tensors on the card launch the kernels; tensors on the CPU take the
-    plain versions."""
-    _require_supported(lgssm)
+    Dispatch, by the SDE's shape alone: state dim <= 3 with H = e1 runs K1
+    and K2 (tensors on the card launch them, tensors on the CPU take the
+    plain versions); any other SDE runs the associative-scan filter in
+    float32 (``_decorrelate_fallback``) and launches nothing."""
+    if not pallas_supported(lgssm):
+        return _decorrelate_fallback(lgssm, y, return_gains, return_moments, return_full)
     A, Q, R, y = _f32_inputs(lgssm, y)
     n = A.shape[0]
     nb = num_blocks_for(n, num_blocks)

@@ -38,17 +38,10 @@ from __future__ import annotations
 import torch
 
 from gpar_at_scale_torch.ops.build import CudaKernel, aligned16, ptr, require_f32
-from gpar_at_scale_torch.ops.kalman import _require_supported, decorrelate_blocked
-from gpar_at_scale_torch.ssm.blocked import (
-    _combine_smooth,
-    _inv_small,
-    _pad_block,
-    _scan,
-    _smooth_identity,
-    _unblock,
-    num_blocks_for,
-)
+from gpar_at_scale_torch.ops.kalman import _as_f32, decorrelate_blocked, pallas_supported
+from gpar_at_scale_torch.ssm.blocked import _pad_block, _smooth_identity, _unblock, num_blocks_for
 from gpar_at_scale_torch.ssm.markov import LGSSM
+from gpar_at_scale_torch.ssm.pkalman import _combine_smooth, _inv_small, _scan
 
 K4A = CudaKernel(
     "K4a suffix_reduce", "suffix_scan", "suffix_reduce",
@@ -192,10 +185,20 @@ def pallas_smooth(lgssm: LGSSM, y, return_state: bool = False):
         L_k = P_k - E_k Pp_{k+1} E_k^T.
 
     At the last step A_{k+1} = 0 and Pp_{k+1} = I stand in for the missing
-    next step, which gives the terminal element (0, m_N, P_N).  Sum-kernel
-    SDEs (state dim > 3 or H != e1) raise ``NotImplementedError``: the JAX
-    package sends them to its associative-scan smoother (ROADMAP P8)."""
-    _require_supported(lgssm)
+    next step, which gives the terminal element (0, m_N, P_N).
+
+    Dispatch, by the SDE's shape alone (``pallas_supported``): sum-kernel
+    SDEs (state dim > 3 or H != e1) run the associative-scan smoother
+    (``ssm/pkalman.py::parallel_smooth``) in float32 and launch nothing; as
+    in the JAX package, their gains E come back as zeros."""
+    if not pallas_supported(lgssm):
+        from gpar_at_scale_torch.ssm.pkalman import parallel_smooth
+
+        lg = _as_f32(lgssm)
+        sm = parallel_smooth(lg, torch.as_tensor(y, device=lg.A.device).to(torch.float32))
+        if not return_state:
+            return sm.mean, sm.var, sm.ll[0]
+        return sm.mean, sm.var, sm.ll[0], sm.ms[:, :, 0], sm.Ps, torch.zeros_like(sm.Ps)
     ll, _, _, m, P = decorrelate_blocked(lgssm, y, return_moments=True)
     f32 = torch.float32
     A, Q = lgssm.A.to(f32), lgssm.Q.to(f32)

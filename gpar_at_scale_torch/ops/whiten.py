@@ -32,9 +32,10 @@ from __future__ import annotations
 import torch
 
 from gpar_at_scale_torch.ops.build import CudaKernel, ptr, require_f32
-from gpar_at_scale_torch.ops.kalman import _e1, decorrelate_blocked
-from gpar_at_scale_torch.ssm.blocked import _pad_block, _scan, _unblock, num_blocks_for
+from gpar_at_scale_torch.ops.kalman import _e1, decorrelate_blocked, pallas_supported
+from gpar_at_scale_torch.ssm.blocked import _pad_block, _unblock, num_blocks_for
 from gpar_at_scale_torch.ssm.markov import LGSSM
+from gpar_at_scale_torch.ssm.pkalman import _scan
 
 _LOG_2PI = 1.8378770664093453
 
@@ -147,10 +148,14 @@ def whiten_columns(lgssm: LGSSM, Y, want_aux: bool = False):
     means (N, d, B) and covariances (N, d, d) -- for the backward pass
     (``ssm.blocked_grad.whiten_bwd_elements``).
 
-    float32, state dim <= 3, H = e1, forward only (gradients go through
+    float32, state dim <= 3, H = e1 (``pallas_supported``; any other SDE
+    raises ``ValueError``: callers send it to the associative-scan engine,
+    as ``gp/dtc.py::_whiten_all`` does), forward only (gradients go through
     ``whiten_gram``).  The gains come from K1/K2 run on y = 0; K3 then
     sweeps the B columns.  Tensors on the card launch the kernels; tensors
     on the CPU take the plain versions."""
+    if not pallas_supported(lgssm):
+        raise ValueError("whiten_columns takes state dim <= 3 with H = e1 (pallas_supported)")
     A = lgssm.A.to(torch.float32).contiguous()
     Y = torch.as_tensor(Y, device=A.device).to(torch.float32)
     if Y.ndim == 1:
@@ -177,7 +182,7 @@ def gram_forward(A, Q, R, U, want_aux: bool = False):
     """(G, logdet, aux) of float32 (A, Q, R (N,), U (N, B)) through
     ``whiten_columns``: G = W^T W of the whitened columns and logdet in
     float64, aux as there if ``want_aux``, else None."""
-    lg = LGSSM(A=A, Q=Q, H=_e1(A.shape[-1], A), R=R)
+    lg = LGSSM(A=A, Q=Q, H=_e1(A.shape[-1], A), R=R, e1=True)
     out = whiten_columns(lg, U, want_aux=want_aux)
     W = out[1].double()
     return W.T @ W, out[2].double(), out[3] if want_aux else None
@@ -191,7 +196,12 @@ def whiten_gram(lgssm: LGSSM, U):
     formed in float64.  At N = 1e6 the float32 Gram is PSD only to about
     sqrt(N) eps_f32 of its O(N) diagonal, which can make G_b + K_uu
     indefinite downstream; a float64 Gram of the stored W is PSD to float64
-    rounding, and the M x M algebra after it runs in float64 too."""
+    rounding, and the M x M algebra after it runs in float64 too.
+
+    State dim <= 3 with H = e1 only (``pallas_supported``): any other SDE
+    raises ``ValueError``; callers check first, as in the JAX package."""
+    if not pallas_supported(lgssm):
+        raise ValueError("whiten_gram takes state dim <= 3 with H = e1 (pallas_supported)")
     f32 = torch.float32
     n = lgssm.num_steps
     A, Q = lgssm.A.to(f32).contiguous(), lgssm.Q.to(f32).contiguous()

@@ -22,7 +22,13 @@ import torch
 
 from gpar_at_scale_torch.ssm.kalman import FilterResult, SmoothResult, _ensure_batch
 from gpar_at_scale_torch.ssm.markov import LGSSM
-from gpar_at_scale_torch.ssm.pkalman import _filter_elements
+from gpar_at_scale_torch.ssm.pkalman import (
+    _combine_fast,
+    _combine_smooth,
+    _filter_elements,
+    _scan,
+    _smoother_elements,
+)
 
 _LOG_2PI = 1.8378770664093453
 
@@ -40,44 +46,6 @@ def num_blocks_for(n: int, num_blocks=None) -> int:
     if num_blocks is None:
         num_blocks = min(NUM_BLOCKS, n // MIN_BLOCK_STEPS)
     return max(1, min(int(num_blocks), n))
-
-
-def _inv_small(Z):
-    """Batched inverse of (..., d, d) via the adjugate for d <= 3 (every Z
-    inverted here is I + (PSD)(PSD) or a predicted covariance)."""
-    d = Z.shape[-1]
-    if d == 1:
-        return 1.0 / Z
-    if d == 2:
-        a, b, c, e = Z[..., 0, 0], Z[..., 0, 1], Z[..., 1, 0], Z[..., 1, 1]
-        det = a * e - b * c
-        adj = torch.stack([torch.stack([e, -b], -1), torch.stack([-c, a], -1)], -2)
-        return adj / det[..., None, None]
-    if d == 3:
-        r0, r1, r2 = Z[..., 0, :], Z[..., 1, :], Z[..., 2, :]
-        c0 = torch.linalg.cross(r1, r2)
-        c1 = torch.linalg.cross(r2, r0)
-        c2 = torch.linalg.cross(r0, r1)
-        det = (r0 * c0).sum(-1)
-        return torch.stack([c0, c1, c2], -1) / det[..., None, None]
-    return torch.linalg.inv_ex(Z)[0]
-
-
-def _combine_fast(elem_i, elem_j):
-    """Filtering-element combine (i earlier, j later) with the adjugate
-    inverse: the algebra of ``pkalman._combine``."""
-    A_i, b_i, C_i, eta_i, J_i = elem_i
-    A_j, b_j, C_j, eta_j, J_j = elem_j
-    d = A_i.shape[-1]
-    I = torch.eye(d, dtype=A_i.dtype, device=A_i.device)
-    AjZ = A_j @ _inv_small(I + C_i @ J_j)
-    A_ij = AjZ @ A_i
-    b_ij = AjZ @ (b_i + C_i @ eta_j) + b_j
-    C_ij = AjZ @ C_i @ A_j.transpose(-1, -2) + C_j
-    AiTZ2 = A_i.transpose(-1, -2) @ _inv_small(I + J_j @ C_i)
-    eta_ij = AiTZ2 @ (eta_j - J_j @ b_i) + eta_i
-    J_ij = AiTZ2 @ J_j @ A_i + J_i
-    return A_ij, b_ij, C_ij, eta_ij, J_ij
 
 
 def _elem_identity(B, d, C, dtype, device):
@@ -107,23 +75,6 @@ def _pad_block(x, B, T, fill):
         rows = torch.as_tensor(fill, dtype=x.dtype, device=x.device).expand((pad,) + x.shape[1:])
         x = torch.cat([x, rows], dim=0)
     return _block(x, B, T)
-
-
-def _scan(fn, elems, reverse=False):
-    """Inclusive scan along axis 0 by recursive doubling (log2 n levels of
-    one batched ``fn`` each).  ``fn(prev, cur)`` combines the running value
-    of the earlier positions in scan order with the current one."""
-    if reverse:
-        elems = tuple(e.flip(0) for e in elems)
-    n = elems[0].shape[0]
-    off = 1
-    while off < n:
-        tail = fn(tuple(e[:-off] for e in elems), tuple(e[off:] for e in elems))
-        elems = tuple(torch.cat([e[:off], t], dim=0) for e, t in zip(elems, tail))
-        off *= 2
-    if reverse:
-        elems = tuple(e.flip(0) for e in elems)
-    return elems
 
 
 def block_totals(lgssm: LGSSM, Y, B, T):
@@ -208,27 +159,20 @@ def blocked_filter(lgssm: LGSSM, y, num_blocks=None) -> FilterResult:
     return FilterResult(m=o["m"], P=o["P"], mp=o["mp"], Pp=o["Pp"], S=o["S"], v=o["v"], ll=ll)
 
 
-def _smoother_elements_fast(lgssm: LGSSM, res: FilterResult):
-    """(E, g, L) smoothing elements with the adjugate inverse:
-    E_k = P_k A_{k+1}^T Pp_{k+1}^-1, g_k = m_k - E_k mp_{k+1},
-    L_k = P_k - E_k Pp_{k+1} E_k^T; the last element is (0, m_N, P_N)."""
-    A, m, P, mp, Pp = lgssm.A, res.m, res.P, res.mp, res.Pp
-    d = A.shape[-1]
-    E = P[:-1] @ A[1:].transpose(-1, -2) @ _inv_small(Pp[1:])
-    g = m[:-1] - E @ mp[1:]
-    L = P[:-1] - E @ Pp[1:] @ E.transpose(-1, -2)
-    return (
-        torch.cat([E, E.new_zeros((1, d, d))]),
-        torch.cat([g, m[-1:]]),
-        torch.cat([L, P[-1:]]),
-    )
+def blocked_logpdf(lgssm: LGSSM, y, num_blocks=None):
+    """log N(y | 0, Sigma) per column through the blocked filter."""
+    res = blocked_filter(lgssm, y, num_blocks)
+    return res.ll[0] if y.ndim == 1 else res.ll
 
 
-def _combine_smooth(later, earlier):
-    """(earlier o later): (E_e E_l, E_e g_l + g_e, E_e L_l E_e^T + L_e)."""
-    E_l, g_l, L_l = later
-    E_e, g_e, L_e = earlier
-    return E_e @ E_l, E_e @ g_l + g_e, E_e @ L_l @ E_e.transpose(-1, -2) + L_e
+def blocked_decorrelate(lgssm: LGSSM, y, num_blocks=None):
+    """Whitening pass (ll, alpha = v / sqrt(S)) through the blocked filter;
+    batched columns share one pass."""
+    res = blocked_filter(lgssm, y, num_blocks)
+    alpha = res.v / torch.sqrt(res.S)[:, None]
+    if y.ndim == 1:
+        return res.ll[0], alpha[:, 0]
+    return res.ll, alpha
 
 
 def _smooth_identity(B, d, C, dtype, device):
@@ -272,7 +216,7 @@ def blocked_smooth(
     so no replay pass is needed."""
     Y, single = _ensure_batch(y)
     res = filter_result if filter_result is not None else blocked_filter(lgssm, Y, num_blocks)
-    _, ms, Ps = blocked_suffix_scan(*_smoother_elements_fast(lgssm, res), num_blocks=num_blocks)
+    _, ms, Ps = blocked_suffix_scan(*_smoother_elements(lgssm, res), num_blocks=num_blocks)
     H = lgssm.H.to(lgssm.A.dtype)
     f_mean = torch.einsum("d,ndb->nb", H, ms)
     f_var = torch.einsum("d,nde,e->n", H, Ps, H)

@@ -98,6 +98,13 @@ def decorrelate(lgssm: LGSSM, y):
     return res.ll, alpha
 
 
+def log_det_cov(lgssm: LGSSM):
+    """log det(Sigma) = sum_k log S_k, from the innovation variances: no
+    dense noise matrix."""
+    res = kalman_filter(lgssm, lgssm.A.new_zeros((lgssm.num_steps,)))
+    return torch.log(res.S).sum()
+
+
 def rts_smooth(lgssm: LGSSM, y, filter_result: FilterResult = None) -> SmoothResult:
     """Rauch-Tung-Striebel smoother; batched means share one covariance pass."""
     Y, single = _ensure_batch(y)

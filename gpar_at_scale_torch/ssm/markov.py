@@ -16,7 +16,7 @@ form.  Sums of Markovian kernels are block-diagonal states.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -62,12 +62,16 @@ class LGSSM:
     H: (d,) emission row.
     R: (N,) per-point observation noise variance (the 1e10 test-point splice
        of the predictive needs it per point).
+    e1: whether H = e1 (one Matern block), where the code that builds the
+       LGSSM knows it on the host; None where it does not
+       (``ops.kalman.pallas_supported`` then reads H back).
     """
 
     A: torch.Tensor
     Q: torch.Tensor
     H: torch.Tensor
     R: torch.Tensor
+    e1: Optional[bool] = None
 
     @property
     def num_steps(self) -> int:
@@ -221,7 +225,7 @@ def discretize(sde: SDE, t, noise_var) -> LGSSM:
     Q = torch.cat([Pinf[None], Q_steps], dim=0)
     Q = 0.5 * (Q + Q.transpose(-1, -2))  # symmetrize against rounding
     R = torch.as_tensor(noise_var, dtype=t.dtype, device=t.device).expand(n).contiguous()
-    return LGSSM(A=A, Q=Q, H=H, R=R)
+    return LGSSM(A=A, Q=Q, H=H, R=R, e1=len(sde.blocks) == 1)
 
 
 def lgssm_of(kernel: Kernel, t, noise_var, dtype=None) -> LGSSM:
@@ -239,4 +243,5 @@ def lgssm_of(kernel: Kernel, t, noise_var, dtype=None) -> LGSSM:
     dtype = t.dtype if dtype is None else dtype
     f64 = torch.float64
     lg = discretize(to_sde(kernel, f64, t.device), t.to(f64), noise_var)
-    return LGSSM(A=lg.A.to(dtype), Q=lg.Q.to(dtype), H=lg.H.to(dtype), R=lg.R.to(dtype))
+    return LGSSM(A=lg.A.to(dtype), Q=lg.Q.to(dtype), H=lg.H.to(dtype), R=lg.R.to(dtype),
+                 e1=lg.e1)

@@ -182,6 +182,12 @@ def test_lgssm_of_matches_jax(name, rng):
     lt = tmarkov.lgssm_of(kt, _t(t), _t(R), F64)
     for a, b in [(lt.A, lj.A), (lt.Q, lj.Q), (lt.H, lj.H), (lt.R, lj.R)]:
         _close(a, b, atol=1e-14)
+    # H = e1 recorded on the host: the same answer as reading H back, and
+    # as the JAX package's kernel-path check
+    from gpar_at_scale_tpu.ops.pallas_kalman import pallas_supported as j_supported
+
+    unrecorded = tmarkov.LGSSM(A=lt.A, Q=lt.Q, H=lt.H, R=lt.R)
+    assert lt.e1 == tops_kalman.pallas_supported(unrecorded) == j_supported(lj) == ("+" not in name)
     # discretize on a scalar noise, from the SDE
     ld = tmarkov.discretize(tmarkov.to_sde(kt, F64), _t(t), 0.1)
     _close(ld.R, np.full(30, 0.1))
@@ -249,6 +255,49 @@ def test_blocked_smooth_matches_jax(num_blocks, rng):
         _close(a, b, rtol=1e-8, atol=1e-10)
 
 
+@jax.jit
+def _jax_engines(lj, Yj):
+    from gpar_at_scale_tpu.ssm import pkalman as jp
+
+    return (jp.parallel_filter(lj, Yj), jp.parallel_smooth(lj, Yj), jp.parallel_logpdf(lj, Yj[:, 0]),
+            jp.parallel_decorrelate(lj, Yj[:, 1]), jkalman.log_det_cov(lj),
+            jblocked.blocked_logpdf(lj, Yj), jblocked.blocked_decorrelate(lj, Yj[:, 2]))
+
+
+@pytest.mark.parametrize("name", ["Matern52", "Matern12+Matern32"])
+def test_associative_engines_match_jax(name, rng):
+    """The associative-scan filter and smoother (ssm/pkalman.py) against the
+    JAX package's at n = 200, float64, three columns: a single Matern block
+    (d = 3) and a sum SDE (d = 3, H = [1, 1, 0]).  Measured at most 3e-14 of
+    each output's scale, held to rtol 1e-9; the same against the port's
+    sequential engine.  log_det_cov, blocked_logpdf and blocked_decorrelate
+    beside them."""
+    from gpar_at_scale_torch.ssm import pkalman as tp
+
+    n = 200
+    t, Y = _grid(rng, n), rng.normal(size=(n, 3))
+    kj, kt = _kernel_pair(name)
+    lj = jmarkov.lgssm_of(kj, jnp.asarray(t), 0.1, jnp.float64)
+    lt = tmarkov.lgssm_of(kt, _t(t), 0.1, F64)
+    Yj, Yt = jnp.asarray(Y), _t(Y)
+    tol = dict(rtol=1e-9, atol=1e-12)
+    fj, sj, llj, decj, ldj, bllj, bdecj = _jax_engines(lj, Yj)  # one JAX compile
+    ft, st = tp.parallel_filter(lt, Yt), tp.parallel_smooth(lt, Yt)
+    for a, b in zip(ft, fj):
+        _close(a, b, **tol)
+    for a, b in zip(st, sj):
+        _close(a, b, **tol)
+    for a, b in zip(st, tkalman.rts_smooth(lt, Yt)):
+        _close(a, b, **tol)
+    _close(tp.parallel_logpdf(lt, Yt[:, 0]), llj, rtol=1e-10)
+    for a, b in zip(tp.parallel_decorrelate(lt, Yt[:, 1]), decj):
+        _close(a, b, **tol)
+    _close(tkalman.log_det_cov(lt), ldj, rtol=1e-10)
+    _close(tblocked.blocked_logpdf(lt, Yt), bllj, rtol=1e-9)
+    for a, b in zip(tblocked.blocked_decorrelate(lt, Yt[:, 2], num_blocks=7), bdecj):
+        _close(a, b, **tol)
+
+
 # ---------------------------------------------------------------------------
 # gp/dtc.py, dense branch
 # ---------------------------------------------------------------------------
@@ -295,6 +344,96 @@ def test_dense_dtc_matches_jax(rng):
                              _t(0.04), mean=0.2)
     for a, b in zip(pt, pj):
         _close(a, b, rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("branch", ["solves", "inverse-factors"])
+def test_monte_carlo_predictive_matches_jax(branch, rng, monkeypatch):
+    """predict_scaled(num_samples=S): the JAX package's draw of eps
+    (``QU.sample_eps`` from its key) fed to the port's body
+    (``_predict_scaled``), against the JAX predictive with the same key,
+    float64, N = 120, N* = 15, S = 16.  On the dense branch (triangular
+    solves, dense smoother) and, with the port's DENSE_N_MAX cut to 64, on
+    its blocked smoother, where it multiplies by inverse factors (the JAX
+    package stays dense: the same function).  Held to rtol 1e-9; measured
+    4.3e-14 (solves) and 5.2e-13 (inverse factors) of each output's
+    scale."""
+    t, V, y, Z, (jo, jt, lj), (to, tt, lt) = _dtc_problem(rng)
+    if branch == "inverse-factors":
+        monkeypatch.setattr(tdtc, "DENSE_N_MAX", 64)
+    ctx_j, ctx_t = dict(time_kernel=jt, t=jnp.asarray(t)), dict(time_kernel=tt, t=_t(t))
+    qj = jdtc.compute_q_u(jo, lj, jnp.asarray(V), jnp.asarray(Z), jnp.asarray(y), **ctx_j)
+    qt = tdtc.compute_q_u(to, lt, _t(V), _t(Z), _t(y), **ctx_t)
+    t_star, V_star = np.sort(rng.uniform(0, 6, 15)), rng.normal(size=(15, 2))
+    key, S = jax.random.PRNGKey(3), 16
+    pj = jdtc.predict_scaled(jo, jt, qj, jnp.asarray(V), jnp.asarray(t), jnp.asarray(y),
+                             jnp.asarray(t_star), jnp.asarray(V_star), 0.04, mean=0.2, key=key,
+                             num_samples=S)
+    pt = tdtc._predict_scaled(to, tt, qt, _t(V), _t(t), _t(y), _t(t_star), _t(V_star), _t(0.04),
+                              mean=0.2, eps=_t(qj.sample_eps(key, S)))
+    for a, b in zip(pt, pj):
+        _close(a, b, rtol=1e-9, atol=1e-12)
+
+
+def test_sample_eps_draws_q_u(rng):
+    """QU.sample_eps from a torch.Generator: 40000 draws of the M = 9
+    pseudo-point weights have the mean m_eps and the covariance D^-1 of
+    q(eps) within 5 standard errors, entry by entry; the same seed gives
+    the same draws."""
+    t, V, y, Z, _, (to, tt, lt) = _dtc_problem(rng)
+    qt = tdtc.compute_q_u(to, lt, _t(V), _t(Z), _t(y), time_kernel=tt, t=_t(t))
+    S = 40000
+    eps = qt.sample_eps(torch.Generator().manual_seed(0), S)
+    assert eps.shape == (9, S) and eps.dtype == F64
+    again = (qt.sample_eps(torch.Generator().manual_seed(1), 5) for _ in range(2))
+    _close(next(again), _np(next(again)), rtol=0, atol=0)
+    cov = torch.cholesky_inverse(qt.L_D)  # D^-1
+    sd = torch.sqrt(torch.diagonal(cov))
+    assert bool(((eps.mean(1) - qt.m_eps).abs() <= 5 * sd / math.sqrt(S)).all())
+    se = torch.sqrt((torch.outer(sd**2, sd**2) + cov**2) / S)
+    assert bool(((torch.cov(eps) - cov).abs() <= 5 * se).all())
+
+
+@pytest.mark.parametrize("dtype,mode", [("float64", "off"), ("float32", "interpret")])
+def test_sparse_iid_matches_jax(dtype, mode, rng, monkeypatch):
+    """The iid-noise sparse GP (dtc_objective_iid, titsias_elbo,
+    predict_sparse_iid), N = 40, M = 8, 2-D inputs, 12 test points: float64
+    through torch.linalg (rtol 1e-10, the same algebra) and float32 through
+    the plain versions of K6a-c against the JAX interpret kernels
+    (``GPAR_PALLAS_DENSE_INTERPRET=1``): the predictions at rtol 2e-5,
+    atol 2e-5 as in ``test_exact_gp_matches_jax`` (measured 8.1e-7 of their
+    scale), the two bounds, which cancel terms as large as
+    |y - m|^2 / s2 (about 400), to 2e-5 of that (measured 1.2e-4 absolute,
+    1.5% of it).  float64: measured 4.9e-15."""
+    from gpar_at_scale_torch.ops import dense as tdense
+
+    for v in _DENSE_ENV:
+        monkeypatch.delenv(v, raising=False)
+    calls = []
+    if mode == "interpret":
+        monkeypatch.setenv("GPAR_PALLAS_DENSE_INTERPRET", "1")
+        plain = tdense.chol_solve_plain
+        monkeypatch.setattr(tdense, "chol_solve_plain", lambda S, B: calls.append(S.shape) or plain(S, B))
+    jdt, tdt = (jnp.float64, F64) if dtype == "float64" else (jnp.float32, F32)
+    tol = dict(rtol=1e-10, atol=1e-12) if dtype == "float64" else dict(rtol=2e-5, atol=2e-5)
+    n = 40
+    V, Vs = rng.uniform(0, 3, size=(n, 2)), rng.uniform(0, 3, size=(12, 2))
+    y = np.sin(V[:, 0]) + 0.5 * np.cos(V[:, 1]) + 0.1 * rng.normal(size=n)
+    Z = V[::5]
+    kj = jk.Matern52(lengthscale=0.9, variance=1.2)
+    kt = tk.Matern52(lengthscale=_t(0.9, tdt), variance=_t(1.2, tdt))
+    J = lambda a: jnp.asarray(a, jdt)  # noqa: E731
+    T = lambda a: _t(a, tdt)  # noqa: E731
+    scale = float(np.sum((y - 0.1) ** 2) / 0.05)
+    bound_tol = tol if dtype == "float64" else dict(rtol=0, atol=2e-5 * scale)
+    for fj, ft in ((jdtc.dtc_objective_iid, tdtc.dtc_objective_iid),
+                   (jdtc.titsias_elbo, tdtc.titsias_elbo)):
+        _close(ft(kt, T(V), T(Z), T(y), 0.05, mean=0.1), fj(kj, J(V), J(Z), J(y), 0.05, mean=0.1),
+               **bound_tol)
+    got = tdtc.predict_sparse_iid(kt, T(V), T(Z), T(y), 0.05, T(Vs), mean=0.1)
+    for a, b in zip(got, jdtc.predict_sparse_iid(kj, J(V), J(Z), J(y), 0.05, J(Vs), mean=0.1)):
+        assert a.dtype == tdt
+        _close(a, b, **tol)
+    assert calls == ([(8, 8)] * 4 if mode == "interpret" else [])  # cholesky_psd(K_uu) per call
 
 
 def test_predict_from_jax_weights(rng):
@@ -513,22 +652,66 @@ def test_whiten_sweep_plain_blocking(rng):
         tops_whiten.whiten_sweep(gains, Y, 3, nb=7, T=47)
 
 
-def test_sum_kernel_and_gradients_raise():
-    """Sum-kernel SDEs still raise on the kernel path (ROADMAP P8); a
-    gradient now flows through the kernel path's whitened Gram, and agrees
-    with the tensor-code blocked engine's closed form (float32, 20 steps:
-    measured 2.1e-7 relative, held to 1e-4)."""
-    t = _t(np.linspace(0, 1, 20), torch.float32)
-    k = tk.Matern12(lengthscale=_t(1.0), variance=_t(1.0)) + tk.Matern12(lengthscale=_t(2.0), variance=_t(1.0))
-    lg = tmarkov.lgssm_of(k, t, 0.1, torch.float32)
-    assert not tops_kalman.pallas_supported(lg)
-    with pytest.raises(NotImplementedError, match="P8"):
-        tops_kalman.decorrelate_blocked(lg, torch.zeros(20))
-    with pytest.raises(NotImplementedError, match="P8"):
-        tops_smoother.pallas_smooth(lg, torch.zeros(20))
-    with pytest.raises(NotImplementedError, match="P8"):
-        tops_grad.logpdf_markov_pallas(k, t, 0.1, torch.zeros(20))
+def test_sum_kernel_and_gradients_raise(rng):
+    """Sum-kernel SDEs on the kernel path no longer raise: the wrappers send
+    them to the associative-scan engine, chosen by ``pallas_supported`` from
+    the SDE's shape, and launch nothing.  Matern-5/2 + Matern-1/2 (d = 4),
+    n = 300, float32, against the JAX wrappers, which take their
+    associative fallback: ``decorrelate_blocked`` and ``pallas_smooth`` on
+    bit-identical inputs at the JAX kernel tests' tolerances (alpha and the
+    smoothed mean and variance atol 2e-5, ll rtol 2e-5, logdet rtol 1e-6;
+    the filtered and smoothed state moments, whose scans combine in another
+    order, 2e-5 and 1e-4 of their scale as in
+    ``test_pallas_smooth_matches_jax``): measured at most 6.6e-6 of each
+    output's scale, the smoothed variance 1.4e-5.  ``logpdf_markov_pallas``'s
+    value and lengthscale gradient: the port discretizes in float64, the JAX
+    package in float32; measured 2.8e-7 and 3.0e-6 relative, held to 2e-5
+    and 1e-3.  A gradient also flows through the kernel path's whitened
+    Gram, and agrees with the tensor-code blocked engine's closed form
+    (float32, 20 steps: measured 2.1e-7 relative, held to 1e-4)."""
+    from gpar_at_scale_tpu.ops.pallas_grad import logpdf_markov_pallas as j_logpdf
+    from gpar_at_scale_tpu.ops.pallas_smoother import pallas_smooth as j_smooth
+
+    n, f32 = 300, torch.float32
+    ts = np.cumsum(rng.uniform(0.1, 1.0, n)) / 50.0
+    y = np.sin(8 * ts) + 0.3 * rng.normal(size=n)
+
+    def kernel_j(l):
+        return jk.Matern52(lengthscale=l, variance=1.0) + jk.Matern12(lengthscale=2.0, variance=0.5)
+
+    lj = jmarkov.lgssm_of(kernel_j(0.8), jnp.asarray(ts, jnp.float32), 0.1, jnp.float32)
+    lt = tmarkov.LGSSM(A=_t(lj.A, f32), Q=_t(lj.Q, f32), H=_t(lj.H, f32), R=_t(lj.R, f32))
+    assert lt.dim == 4 and not tops_kalman.pallas_supported(lt)
+    yj, yt = jnp.asarray(y, jnp.float32), _t(y, f32)
+    for k in KERNELS:
+        k.launches = 0
+    out_t = tops_kalman.decorrelate_blocked(lt, yt, return_full=True)
+    out_j, sm_j = jax.jit(lambda lg, y_: (pallas_decorrelate(lg, y_, return_full=True),
+                                          j_smooth(lg, y_, return_state=True)))(lj, yj)
+    assert len(out_t) == 7 and out_t[1].shape == (n,) and out_t[6].shape == (n, 4, 4)
+    _close(out_t[0], out_j[0], rtol=2e-5)
+    _close(out_t[1], out_j[1], rtol=0, atol=2e-5)
+    _close(out_t[2], out_j[2], rtol=1e-6)
+    for got, want in zip(out_t[3:], out_j[3:]):  # S, K, m, P
+        _close(got, want, rtol=0, atol=2e-5 * float(np.abs(np.asarray(want)).max()))
+    sm_t = tops_smoother.pallas_smooth(lt, yt, return_state=True)
+    _close(sm_t[2], sm_j[2], rtol=2e-5)
+    for i in (0, 1, 5):  # f_mean, f_var, E (zeros on both)
+        _close(sm_t[i], sm_j[i], rtol=0, atol=2e-5)
+    for i in (3, 4):  # ms, Ps
+        _close(sm_t[i], sm_j[i], rtol=0, atol=1e-4 * float(np.abs(np.asarray(sm_j[i])).max()))
+    l = _t(0.8, f32).requires_grad_()
+    k_t = tk.Matern52(lengthscale=l, variance=_t(1.0, f32)) + tk.Matern12(
+        lengthscale=_t(2.0, f32), variance=_t(0.5, f32))
+    v_t = tops_grad.logpdf_markov_pallas(k_t, _t(ts, f32), 0.1, yt)
+    v_t.backward()
+    v_j, g_j = jax.jit(jax.value_and_grad(
+        lambda l_: j_logpdf(kernel_j(l_), jnp.asarray(ts, jnp.float32), 0.1, yj)))(jnp.float32(0.8))
+    _close(v_t, float(v_j), rtol=2e-5)
+    _close(l.grad, float(g_j), rtol=1e-3)
+    assert all(k.launches == 0 for k in KERNELS)
     U = _t(np.random.default_rng(1).normal(size=(20, 2)), torch.float32)
+    t = _t(np.linspace(0, 1, 20), torch.float32)
     grads = []
     for whiten_gram in (tops_whiten.whiten_gram, tblocked_grad.whiten_gram):
         ls = _t(1.0, torch.float32).requires_grad_()
@@ -541,6 +724,9 @@ def test_sum_kernel_and_gradients_raise():
     # the forward-only sweep carries no gradient
     _, alpha, _ = tops_whiten.whiten_columns(lg1, U)
     assert not alpha.requires_grad
+    # the column sweep and the Gram take one Matern block only; their callers route
+    with pytest.raises(ValueError, match="pallas_supported"):
+        tops_whiten.whiten_gram(lt, yt[:, None])
 
 
 # ---------------------------------------------------------------------------
@@ -849,6 +1035,53 @@ def test_dtc_gradient_matches_jax(separate_noise, rng):
     _close(g_k, _np(out["sequential"][1]), rtol=1e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("separate_noise", [False, True])
+def test_associative_filter_impl_matches_jax(separate_noise, rng):
+    """filter_impl="associative": one conditional's DTC bound and its
+    gradient at n = 300, M = 8, float64, against the JAX package's through
+    its parallel_filter (both noise packings); and output 1's nll, which the
+    JAX package computes with its sequential filter and the port with
+    parallel_logpdf (the same function).  Held to rtol 1e-9 (value) and
+    1e-8 (gradient); measured at most 1.6e-14 of each output's scale."""
+    import gpar_at_scale_tpu.models.gpar as jgpar
+    from gpar_at_scale_tpu.ssm.pkalman import parallel_filter
+    from gpar_at_scale_torch.models.gpar import GPARConfig, _conditional_bound, _first_output_nll
+
+    n, m = 300, 8
+    t = _grid(rng, n, 6.0)
+    X = rng.normal(size=(n, 2))
+    y = np.sin(t) + 0.4 * X[:, 0] + 0.1 * rng.normal(size=n)
+    Z = X[:: n // m][:m]
+    p0 = rng.normal(scale=0.3, size=6 if separate_noise else 5)
+    jcfg = jgpar.GPARConfig(backend="scaled", filter_impl="associative", separate_noise=separate_noise)
+
+    def nll_j(p):
+        tl, ts, ol, osig, ns, tns = jgpar._unpack_cond(jcfg, p)
+        time_k = jk.Matern52(lengthscale=tl, variance=ts**2)
+        lg = jmarkov.lgssm_of(time_k, jnp.asarray(t), tns**2, jnp.float64)
+        return -jdtc.dtc_objective(jk.Matern52(lengthscale=ol, variance=osig**2), lg, jnp.asarray(X),
+                                   jnp.asarray(Z), jnp.asarray(y), uu_ridge=ns**2,
+                                   filter_fn=parallel_filter, time_kernel=time_k, t=jnp.asarray(t))
+
+    cfg = GPARConfig(backend="scaled", filter_impl="associative", separate_noise=separate_noise)
+    at = _conditional_bound(cfg, _t(t), _t(X), _t(y), _t(Z))
+    cases = [(lambda p: -at(tdtc.dtc_objective, p), nll_j, p0)]
+    if not separate_noise:
+        def nll1_j(p):
+            l, ps, ns = jparams.unpack_gp(p)
+            lg = jmarkov.lgssm_of(jk.Matern52(lengthscale=l, variance=ps**2), jnp.asarray(t), ns**2)
+            return -jkalman.logpdf(lg, jnp.asarray(y))
+
+        cases.append((_first_output_nll(cfg, _t(t), _t(y)), nll1_j, p0[:3]))
+    for nll_t, nll_jax, p in cases:
+        v_j, g_j = jax.jit(jax.value_and_grad(nll_jax))(jnp.asarray(p))
+        pt = _t(p).requires_grad_()
+        v_t = nll_t(pt)
+        v_t.backward()
+        _close(v_t, float(v_j), rtol=1e-9)
+        _close(pt.grad, np.asarray(g_j), rtol=1e-8, atol=1e-10)
+
+
 def _small_chain(n, P):
     t, Y, t_star, _, _ = make_chain_data(n, 50, P, np.random.default_rng(5))
     first = np.asarray(jparams.pack_gp(0.5, 1.0, 0.2))
@@ -916,6 +1149,40 @@ def test_adam_trace_matches_jax():
         assert ft.opt.num_steps == 3 and ft.opt.trace.shape == (3,)
     for a, b in zip(tm.predict(t_star), jm.predict(jnp.asarray(t_star))):
         _close(a, b, rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("backend", ["scaled", "exact"])
+def test_parallel_fit_matches_jax(backend):
+    """fit_gpar(parallel=True) on a 4-output chain at N = 40, M = 8, with
+    3 Adam steps per output from given parameters, float64: its three
+    conditionals against the JAX package's fit_conditionals_parallel, the
+    vmapped fit on the zero-padded feature stack.  The port fits each
+    conditional on its unpadded features (the same distances and the same
+    pseudo-point rows) with the same gradients and the same Adam formula:
+    parameters and q(u) to rtol 1e-8 (measured 2.0e-13 of each output's
+    scale), Z exactly, predictions to 1e-8."""
+    import gpar_at_scale_tpu.models.gpar as jgpar
+    from gpar_at_scale_torch.models import GPARConfig, fit_gpar
+
+    t, Y, _, init = _small_chain(40, 4)
+    t_star = t + 0.01  # beside each training time, with the training outputs as features
+    kw = dict(backend=backend, num_pseudo_points=8, optimizer="adam", max_opt_steps=3)
+    jconds = jgpar.fit_conditionals_parallel(jax.random.split(jax.random.PRNGKey(0), 3), t, Y,
+                                             jgpar.GPARConfig(**kw),
+                                             init_params=[jnp.asarray(p) for p in init[1:]])
+    tm = fit_gpar(None, t, Y, GPARConfig(**kw), init_params=init, parallel=True, device=CPU)
+    for i, (cj, ct) in enumerate(zip(jconds, tm.conditionals)):
+        _close(ct.params, cj.params, rtol=1e-8, atol=1e-12)
+        assert ct.opt.num_steps == 3 and ct.X_prev.shape == (40, i + 1)
+        if backend == "scaled":
+            assert ct.Z.shape == (8, i + 1) and ct.qu.Z.shape == (8, i + 1)
+            _close(ct.Z, cj.Z, rtol=0, atol=0)
+            for a, b in zip(ct.qu[:3], cj.qu[:3]):
+                _close(a, b, rtol=1e-8, atol=1e-10)
+        X_star = Y[:, :i + 1]
+        for a, b in zip(ct.predict(t_star, X_star),
+                        cj.predict(jnp.asarray(t_star), jnp.asarray(X_star))):
+            _close(a, b, rtol=1e-8, atol=1e-10)
 
 
 def test_kernel_path_training_matches_jax():
@@ -1532,6 +1799,8 @@ def test_port_imports_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gpar_at_scale_tpu)\b", re.M)
     files = sorted((REPO / "gpar_at_scale_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"gpar_at_scale_torch/api.py", "gpar_at_scale_torch/data/toy.py"} <= names
     offenders = [str(f.relative_to(REPO)) for f in files if pat.search(f.read_text())]
     assert offenders == []
 
@@ -1548,6 +1817,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
         fit_gpar(None, np.linspace(0, 1, 10), np.zeros((10, 2)), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.params_from_numpy([np.zeros(3)])
+    from gpar_at_scale_torch import api
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.fit_gp(None, np.linspace(0, 1, 10), np.zeros(10), max_opt_steps=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.get_gpar_scaled_predictions(None, np.zeros((10, 1)), np.zeros((3, 1)),
+                                        np.linspace(0, 1, 10), np.zeros(10), np.zeros(2),
+                                        np.zeros((2, 1)), max_opt_steps=0)
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
@@ -1555,9 +1832,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 def test_serving_slice_guards():
     """max_opt_steps > 0 trains; the exact backend fits and predicts (for
-    the conditionals and for output 1); the parallel fit still raises
-    (ROADMAP), and so does separate_noise with the exact backend, as in the
-    JAX package."""
+    the conditionals and for output 1); parallel=True fits; separate_noise with the
+    exact backend raises, sequential or parallel, as in the JAX package; and
+    a Monte-Carlo predictive without a generator raises ValueError, as the
+    JAX package's does without a key."""
     from gpar_at_scale_torch.models import GPARConfig, fit_gpar
 
     t, Y = np.linspace(0, 1, 12), np.random.default_rng(2).normal(size=(12, 2))
@@ -1570,13 +1848,109 @@ def test_serving_slice_guards():
     assert [f.backend for f in (exact.first, *exact.conditionals)] == ["exact", "exact"]
     mu, var = exact.predict(np.linspace(0, 1.2, 5))
     assert mu.shape == var.shape == (5, 2) and bool(torch.isfinite(mu).all() and (var >= 0).all())
-    with pytest.raises(NotImplementedError, match="parallel"):
-        fit_gpar(None, t, Y, GPARConfig(backend="scaled", max_opt_steps=0), parallel=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        fit_gpar(None, t, Y, GPARConfig(backend="exact", max_opt_steps=0), parallel=True, device=CPU)
-    with pytest.raises(ValueError, match="separate_noise"):
-        fit_gpar(None, t, Y, GPARConfig(backend="exact", separate_noise=True, max_opt_steps=0),
-                 device=CPU)
+    Y3 = np.random.default_rng(3).normal(size=(12, 3))
+    for backend in ("scaled", "exact"):
+        par = fit_gpar(None, t, Y3, GPARConfig(backend=backend, max_opt_steps=0, num_pseudo_points=4),
+                       parallel=True, device=CPU)
+        assert [c.X_prev.shape[1] for c in par.conditionals] == [1, 2]
+        mu, var = par.predict(np.linspace(0, 1.2, 5))
+        assert mu.shape == (5, 3) and bool(torch.isfinite(mu).all() and (var >= 0).all())
+    for parallel in (False, True):
+        with pytest.raises(ValueError, match="separate_noise"):
+            fit_gpar(None, t, Y3, GPARConfig(backend="exact", separate_noise=True, max_opt_steps=0),
+                     parallel=parallel, device=CPU)
+    c = model.conditionals[0]
+    time_k, out_k, nv = c._kernels()
+    with pytest.raises(ValueError, match="Generator"):
+        tdtc.predict_scaled(out_k, time_k, c.qu, c.X_prev, c.t, c.y, c.t[:3], c.X_prev[:3], nv,
+                            num_samples=10)
+    mc = tdtc.predict_scaled(out_k, time_k, c.qu, c.X_prev, c.t, c.y, c.t[:3], c.X_prev[:3], nv,
+                             num_samples=10, generator=torch.Generator().manual_seed(0))
+    assert mc.mean.shape == mc.var.shape == (3,) and bool(torch.isfinite(mc.mean).all())
+
+
+def test_toy_data_matches_jax():
+    """data/toy.py gives the JAX package's small and big datasets exactly."""
+    from gpar_at_scale_tpu.data import toy as jtoy
+    from gpar_at_scale_torch.data import toy as ttoy
+
+    for name, kw in (("generate_small_dataset", {}), ("generate_small_dataset", {"seed": 3}),
+                     ("generate_big_dataset", {"replicate_reference_noise_bug": True})):
+        a, b = getattr(ttoy, name)(**kw), getattr(jtoy, name)(**kw)
+        for x, z in zip(a, b):
+            np.testing.assert_array_equal(x, z)
+    assert ttoy.generate_big_dataset().y_obs.shape == (8496, 3)
+
+
+def test_api_matches_jax(monkeypatch):
+    """The five functions of api.py against the JAX package's at
+    max_opt_steps = 0, where both optimizers return their start (the port's
+    L-BFGS iterates are not optax's; the JAX optimizer is replaced by the
+    identity, which is what its L-BFGS returns at 0 steps, to skip its
+    compile), on the small toy dataset, float64:
+    fit_gp (exact) and fit_gpar_conditional by their parameters and
+    predictions, get_sde_predictions (fit_gp's temporal backend),
+    get_optim_scaled_gpar_params and the analytic
+    get_gpar_scaled_predictions (rtol 1e-8, measured 2.6e-13 of each
+    output's scale; the port whitens densely at this N, the JAX api with
+    its sequential filter: the same bound); the
+    Monte-Carlo get_gpar_scaled_predictions (400 samples) within 6 standard
+    errors of the analytic mean, counted with the predictive's whole
+    standard deviation (at least its f_x part's)."""
+    from gpar_at_scale_tpu import api as japi
+    from gpar_at_scale_torch import api as tapi
+    from gpar_at_scale_torch.data.toy import generate_small_dataset
+
+    import gpar_at_scale_tpu.models.gpar as jgpar
+    from gpar_at_scale_tpu.inference import optimize as jopt
+
+    identity = lambda fun, x0, **kw: jopt.OptResult(  # noqa: E731
+        params=x0, value=jnp.nan, num_steps=0, converged=False)
+    monkeypatch.setattr(jopt, "minimize_lbfgs", identity)
+    monkeypatch.setattr(jgpar, "_minimize", lambda cfg, fun, x0: identity(fun, x0))
+    ds = generate_small_dataset(seed=0)
+    key = jax.random.PRNGKey(0)
+    p_gp = np.asarray(jparams.pack_gp(0.3, 1.0, 0.1))
+    p_cond = np.asarray(jparams.pack_gpar(0.5, 1.0, 1.0, 1.0, 0.1))
+    x, y1, y2 = ds.x, ds.y_obs[:, 0], ds.y_obs[:, 1]
+    grid = ds.x_true[::50]
+    tol = dict(rtol=1e-8, atol=1e-10)
+    gj = japi.fit_gp(key, x, y1, init_log_params=jnp.asarray(p_gp), max_opt_steps=0)
+    gt = tapi.fit_gp(None, x, y1, init_log_params=p_gp, max_opt_steps=0, device=CPU)
+    _close(gt.params, gj.params, rtol=0, atol=0)
+    for a, b in zip(gt.predict(grid), gj.predict(jnp.asarray(grid))):
+        _close(a, b, **tol)
+    cj = japi.fit_gpar_conditional(key, x, ds.y_obs[:, :1], y2, init_log_params=jnp.asarray(p_cond),
+                                   max_opt_steps=0)
+    ct = tapi.fit_gpar_conditional(None, x, ds.y_obs[:, :1], y2, init_log_params=p_cond,
+                                   max_opt_steps=0, device=CPU)
+    _close(ct.params, cj.params, rtol=0, atol=0)
+    for a, b in zip(ct.predict(x, ds.y_obs[:, :1]), cj.predict(jnp.asarray(x), jnp.asarray(ds.y_obs[:, :1]))):
+        _close(a, b, **tol)
+    for a, b in zip(tapi.get_sde_predictions(None, x, y1, grid, init_log_params=p_gp, max_opt_steps=0,
+                                             device=CPU),
+                    japi.get_sde_predictions(key, x, y1, grid, init_log_params=jnp.asarray(p_gp),
+                                             max_opt_steps=0)):
+        _close(a, b, **tol)
+    V, Z = ds.y_obs[:, :1], ds.y_obs[::3, :1]
+    args = (V, Z, x, y2)
+    hj = japi.get_optim_scaled_gpar_params(key, *args, init_log_params=jnp.asarray(p_cond), max_opt_steps=0)
+    ht = tapi.get_optim_scaled_gpar_params(None, *args, init_log_params=p_cond, max_opt_steps=0,
+                                           device=CPU)
+    assert ht == pytest.approx(hj, rel=1e-12)
+    pred = (x, V)
+    mj, sj = japi.get_gpar_scaled_predictions(key, *args, *pred, init_log_params=jnp.asarray(p_cond),
+                                              max_opt_steps=0)
+    mt, st = tapi.get_gpar_scaled_predictions(None, *args, *pred, init_log_params=p_cond,
+                                              max_opt_steps=0, device=CPU)
+    _close(mt, mj, **tol)
+    _close(st, sj, **tol)
+    S = 400
+    mm, sm = tapi.get_gpar_scaled_predictions(torch.Generator().manual_seed(0), *args, *pred,
+                                              init_log_params=p_cond, max_opt_steps=0,
+                                              num_samples=S, device=CPU)
+    assert bool(torch.isfinite(mm).all() and torch.isfinite(sm).all())
+    assert float(((mm - mt).abs() / (st / math.sqrt(S))).max()) <= 6.0
 
 
 def test_cpu_tensors_take_plain_path(rng):
