@@ -72,6 +72,26 @@ Phases, each of which fails the run:
    scan kernel, against the float64 blocked engine; 3 Adam steps under
    ``filter_impl="associative"``; seconds and peak device memory of each.
 
+13. ffbs -- 4 joint posterior draws of the Matern-5/2 temporal GP of
+   ``benchmarks/million_smc.py``'s data at N = 1e6 (float32) through
+   ``blocked_posterior_sample``: the filter with moments on K1/K2, the
+   sampling pass on K4a/K4b with C = 4; the draws standardized by the
+   smoothed moments, the kernels' draw against the tensor-code affine scan;
+14. smc -- ``smc_host`` at N = 1e6 (64 particles, 3 mutations, at most 20
+   stages), each particle's likelihood one call on K1/K2; the posterior
+   median within 10% of the truth; the smoothed predictive at it;
+15. nuts -- ``benchmarks/ess.py --full`` under "on": NUTS, 8 chains in
+   lockstep, over the EEG FZ conditional (N = M = 156, float32, bounded
+   reparameterization), the chains' matrices factored as one batch by K6a;
+   R-hat, ESS, divergences; each chain's last draw against float64 "off";
+   the float32 type-II algebra's gap to the float64 logpost; the predictive
+   mixture's SMSE beside the type-II fit's;
+16. nuts-smc -- ``benchmarks/nuts_vs_smc.py`` at N = 1e5: NUTS (2 chains,
+   gradients through K1/K2 and K4a/K4b) and ``smc_host`` (64 particles) on
+   the same temporal likelihood; posterior means within 4 MC errors; the
+   kernel path's value and gradient at the last draws against the float64
+   blocked engine.
+
 Phase 3 also runs the Monte-Carlo predictive ([mc]): the served chain's
 last conditional with ``predict_scaled(num_samples=100, generator=...)``
 against its analytic predictive (the mean within 6 standard errors, the
@@ -1275,8 +1295,9 @@ def eeg_phase(failures):
     under "off" with the conditionals in float64 (torch.linalg at the
     example's own precision: in float32 it fails to factor F2's scaled
     q(u) at the optimum its L-BFGS reaches on the card), and SMSE of both.
-    Returns K6a-c's launches in the "on" run and {mode: {(backend,
-    channel): float64 objective at the conditional's end point}}."""
+    Returns K6a-c's launches in the "on" run, {mode: {(backend,
+    channel): float64 objective at the conditional's end point}} and the
+    SMSE of the scaled FZ fit under "on"."""
     import numpy as np
     import torch
 
@@ -1321,7 +1342,8 @@ def eeg_phase(failures):
             f"{row[i]:.4f} {row[i + 1]:.4f}" for i in range(0, 6, 2)))
     if not finite:
         failures.append("[eeg] predictions are not finite or have the wrong shape")
-    return on_launches, {mode: results[mode][4] for mode in results}
+    smse_fz = _smse(results["on"][0]["scaled"]["FZ"], ds.Y[n:, ds.channels.index("FZ")])
+    return on_launches, {mode: results[mode][4] for mode in results}, smse_fz
 
 
 def bench_pipeline():
@@ -1867,6 +1889,542 @@ def eeg_parallel(seq_ends, failures):
     return on_launches
 
 
+# ---------------------------------------------------------------------------
+# Posterior draws and the samplers: [ffbs], [smc], [nuts], [nuts-smc]
+# ---------------------------------------------------------------------------
+
+# benchmarks/million_smc.py: N = 1e6 steps of a sine surrogate observed with
+# noise 0.3; the truth quoted for (lengthscale, sigma_f, sigma_n).
+SMC_N, SMC_TRUTH = 1_000_000, (0.7, 1.2, 0.3)
+FFBS_S = 4  # results_r5/ffbs_1m.txt: 4 joint draws
+# [ffbs] checks: the draws standardized by the smoothed moments, over all
+# S x N values: |mean| <= 0.01, |mean square - 1| <= 0.02.  The standardized
+# error is correlated over tau = 191 steps (its autocorrelation summed, on a
+# CPU at N = 2e5 with the same step density), so the standard errors over
+# 4 x 10^6 values are 0.0069 and 0.0085: the bounds are 1.4 and 2.4 of them,
+# tight for a correct sampler, and a wrong variance of 2% fails.  The kernel
+# path's draw against the tensor-code affine scan on the same (E, g_s):
+# max |diff| / max |x| <= FFBS_SCAN_RTOL; both run the float32 recursion
+# over the same 16384 blocks, the kernels with FMAs, as for K4b (TOL).
+FFBS_MEAN_ATOL, FFBS_MS_ATOL, FFBS_SCAN_RTOL = 0.01, 0.02, 1e-4
+# [smc]: 64 particles, 3 mutations, at most 20 stages from the N(0, 2^2)
+# prior's draws 0.5 N(0, 1), as million_smc.py's default host run.  The
+# posterior median of (l, sigma_f, sigma_n) within 10% of the truth: the
+# data are a sine surrogate, not a Matern-5/2 path, so only sigma_n is the
+# generating value; the JAX package's 32-particle run reached (0.646, 1.199,
+# 0.301) (results_r3/million_smc_1m_host.txt), 7.7% from l = 0.7.
+SMC_PARTICLES, SMC_MUTATIONS, SMC_STAGES, SMC_RTOL = 64, 3, 20, 0.10
+# [nuts]: benchmarks/ess.py --full, the EEG FZ conditional on F3-F6 (N =
+# M = 156), bounded_reparam(3.0), max_depth 7, float32 under "on".  Cut for
+# the run's time: 8 chains x (150 warmup + 250 kept) instead of 32 x (300 +
+# 500); a lockstep transition of the 8 chains takes 0.33 to 0.44 s on an
+# H100 at 700 W, host-bound (PERF.md).  Checks: divergences below 2%
+# (tests/test_bayes.py), every constrained draw finite and inside (-3, 3),
+# split R-hat <= 1.1.  At every chain's last draw the float32 "on" logpost
+# against the float64 "off" one: values within 1e-3 relative (0.1 nats at
+# the logpost's scale of 100), gradients within 1e-2 |g| + 2e-2 per
+# component, or, at a draw where float32 itself cannot meet that, within
+# twice the miss of the library's float32 ("off" in float32, torch.linalg)
+# on the same draw.  The fixed bounds are ten times [eeg]'s start-point
+# bounds (2e-5, 1e-3 |g| + 2e-3), which posterior draws failed on an H100
+# (3.2e-5, 1.9 of the gradient bound); at 240 posterior draws on a CPU the
+# library's float32 gradient missed the wider bound at 12 (up to 2.16 of
+# it), as K6a's recursion did (2.19; at most 0.78 of the allowance): the
+# float32 rounding of ill-conditioned Sigma_y, not the kernel.
+NUTS_CHAINS, NUTS_WARMUP, NUTS_SAMPLES, NUTS_DEPTH = 8, 150, 250, 7
+NUTS_DIV_RATE, NUTS_RHAT, NUTS_THETA = 0.02, 1.1, 16
+NUTS_VALUE_RTOL, NUTS_GRAD_RTOL, NUTS_GRAD_ATOL = 1e-3, 1e-2, 2e-2
+# [nuts]: points at which the float32 type-II algebra is held to the float64
+# logpost (f32_algebra_gap), around the posterior and at kept draws.
+NUTS_F32_POINTS = 128
+# [nuts-smc]: benchmarks/nuts_vs_smc.py at N = 1e5 (results_r5's row): NUTS
+# with gradients through the kernel path (K1/K2 forward, K4a/K4b backward),
+# max_depth 6; SMC 64 particles on the same likelihood; the constrained
+# posterior means agree within z = 4 MC errors, which at this cut is no
+# evidence that the sampler is right: two chains of 30 draws do not mix on
+# the (l, sigma_f) ridge (R-hat 2 to 3.5 on an H100), so the MC errors are
+# wide.  The check that can fail a wrong gradient is the kernel path's value
+# and gradient at the chains' last draws against the float64 blocked engine,
+# at [full-N]'s bounds (FULL_TRACE_ATOL on the value / N, _grad_gap).  Cut
+# for the run's time: 2
+# chains x (25 + 30) instead of 4 x (100 + 150): each chain's evaluation is
+# 20 to 30 ms of host-bound launches at this N (about 1100 launches, the
+# device busy 15%), and a lockstep transition of 2 chains 0.8 to 1.0 s on an H100
+# at 700 W (PERF.md).
+NS_N, NS_CHAINS, NS_WARMUP, NS_SAMPLES, NS_DEPTH, NS_STAGES = 100_000, 2, 25, 30, 6, 25
+
+
+def million_smc_data(n):
+    """benchmarks/million_smc.py's data: (t, y, latent f), numpy float64."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    t = np.cumsum(rng.uniform(0.5, 1.5, n)) / 1000.0
+    f = 1.2 * np.sin(2 * np.pi * t / 7.0) * np.cos(2 * np.pi * t / 1.3)
+    return t, f + SMC_TRUTH[2] * rng.normal(size=n), f
+
+
+def _all_counts():
+    from gpar_at_scale_torch.ops import KERNELS
+
+    return {k.name: k.launches for k in KERNELS}
+
+
+def _zero_counts():
+    from gpar_at_scale_torch.ops import KERNELS
+
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _matern_lgssm(t, params):
+    """The float32 LGSSM of a Matern-5/2 temporal GP at log-parameters
+    ``params`` (3,)."""
+    import torch
+
+    from gpar_at_scale_torch.kernels import Matern52
+    from gpar_at_scale_torch.ssm.markov import lgssm_of
+    from gpar_at_scale_torch.utils.params import unpack_gp
+
+    l, sf, sn = unpack_gp(params)
+    return lgssm_of(Matern52(lengthscale=l, variance=sf**2), t, sn**2, torch.float32)
+
+
+def _kernel_loglik(t, y):
+    """One particle's log-likelihood on the kernel path (K1, phase 2, K2),
+    read back to the host: ``log_lik_batch`` of ``smc_host`` evaluates one
+    particle per call."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.ops.kalman import decorrelate_blocked
+
+    def batch(xs):
+        out = []
+        for x in np.asarray(xs):
+            with torch.no_grad():
+                lg = _matern_lgssm(t, torch.as_tensor(x, dtype=torch.float64, device=t.device))
+                out.append(float(decorrelate_blocked(lg, y)[0]))
+        return np.asarray(out)
+
+    return batch
+
+
+def _log_prior_batch(xs):
+    import numpy as np
+
+    return -0.5 * np.sum(np.asarray(xs) ** 2, axis=1) / 4.0
+
+
+def _phase_end(tag, t0, launches):
+    import torch
+
+    _sync(_DEV)
+    secs = time.perf_counter() - t0
+    peak = _peak_gib() if torch.device(_DEV).type == "cuda" else float("nan")
+    _log(f"[{tag}] {secs:.3f} s, peak device memory {peak:.2f} GiB; launches "
+         + ", ".join(f"{k.split()[0]} {v}" for k, v in launches.items()))
+    return secs
+
+
+def ffbs_phase(seed, failures):
+    """[ffbs] results_r5/ffbs_1m.txt on the card: S = 4 joint posterior
+    draws of the Matern-5/2 temporal GP at million_smc.py's truth, N = 1e6,
+    float32, through ``blocked_posterior_sample`` (the filter with moments
+    on K1/K2, the sampling pass on K4a/K4b with C = S).  Then, staged, the
+    filter's and the sampling pass's seconds; the draws standardized by the
+    smoothed moments of ``pallas_smooth``; the kernel path's draw on a fixed
+    xi against the tensor-code ``blocked_affine_suffix_scan`` on the card.
+    Returns the launches of the entry point's call."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.ops.kalman import decorrelate_blocked
+    from gpar_at_scale_torch.ops.smoother import pallas_smooth, suffix_scan
+    from gpar_at_scale_torch.ssm.blocked import (
+        blocked_affine_suffix_scan,
+        blocked_posterior_sample,
+        ffbs_elements,
+    )
+    from gpar_at_scale_torch.utils.params import pack_gp
+
+    t_np, y_np, _ = million_smc_data(SMC_N)
+    f32 = torch.float32
+    t, y = torch.as_tensor(t_np).to(_DEV, f32), torch.as_tensor(y_np).to(_DEV, f32)
+    lg = _matern_lgssm(t, pack_gp(*(torch.tensor(v, dtype=torch.float64) for v in SMC_TRUTH)).to(_DEV))
+    gen = torch.Generator(device=_DEV).manual_seed(seed)
+    if torch.device(_DEV).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    _sync(_DEV)
+    t0 = time.perf_counter()
+    draws = blocked_posterior_sample(gen, lg, y, FFBS_S)
+    launches = _all_counts()
+    total_s = _phase_end("ffbs", t0, launches)
+
+    # staged: the filter, then the sampling pass on fixed standard normals
+    _sync(_DEV)
+    t0 = time.perf_counter()
+    _, _, _, m, P = decorrelate_blocked(lg, y, return_moments=True)
+    _sync(_DEV)
+    filter_s = time.perf_counter() - t0
+    xi = torch.randn((SMC_N, 3, FFBS_S), generator=gen, dtype=f32, device=_DEV)
+    t0 = time.perf_counter()
+    E, g_s, L = ffbs_elements(lg, m, P, xi, f32)
+    x = suffix_scan(E, g_s, L)[0]
+    _sync(_DEV)
+    sample_s = time.perf_counter() - t0
+
+    x_t = blocked_affine_suffix_scan(E, g_s)[1]
+    scan_rel = float((x - x_t).abs().max() / x_t.abs().max())
+    same = float((blocked_posterior_sample(gen, lg, y, FFBS_S, xi=xi) - x[:, 0, :].T).abs().max())
+    f_mean, f_var, _ = pallas_smooth(lg, y)
+    z = ((draws - f_mean[None]) / torch.sqrt(f_var)[None]).double()
+    z_mean, z_ms = float(z.mean()), float((z * z).mean())
+    finite = bool(torch.isfinite(draws).all() and torch.isfinite(x).all())
+    ok_ = (finite and abs(z_mean) <= FFBS_MEAN_ATOL and abs(z_ms - 1.0) <= FFBS_MS_ATOL
+           and scan_rel <= FFBS_SCAN_RTOL and same == 0.0 and draws.shape == (FFBS_S, SMC_N)
+           and all(launches[k.name] > 0 for k in _scan_kernels() if not k.name.startswith("K3")))
+    _log(f"[ffbs] {FFBS_S} joint draws x {SMC_N:,} steps: blocked_posterior_sample {total_s:.4f} s; "
+         f"staged: filter {1e3 * filter_s:.2f} ms + sampling {1e3 * sample_s:.2f} ms "
+         f"({FFBS_S * SMC_N / sample_s:.4e} sample-steps/s in the sampling pass); standardized "
+         f"draws: mean {z_mean:.5f} (|.| <= {FFBS_MEAN_ATOL}), mean square {z_ms:.5f} "
+         f"(1 +- {FFBS_MS_ATOL}); kernels vs tensor-code affine scan on one xi: {scan_rel:.3e} of "
+         f"max |x| (<= {FFBS_SCAN_RTOL}), entry point vs staged draw on that xi {same:.1e}; finite {finite}; "
+         f"draw sd {float(draws.std()):.4f} {'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[ffbs] the posterior draws failed a check")
+    return launches
+
+
+def smc_phase(seed, failures):
+    """[smc] million_smc.py's host-driven default on the card: ``smc_host``
+    with 64 particles, 3 mutations, at most 20 stages, each particle's
+    likelihood at N = 1e6 one call on the kernel path (K1/K2); then the
+    smoothed predictive at the posterior median (K1/K2, K4a/K4b) and its
+    rmse against the latent path.  Returns the sampler's launches."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.inference.smc import smc_host
+    from gpar_at_scale_torch.ops.smoother import pallas_smooth
+    from gpar_at_scale_torch.utils.params import unconstrain
+
+    t_np, y_np, f_np = million_smc_data(SMC_N)
+    f32 = torch.float32
+    t, y = torch.as_tensor(t_np).to(_DEV, f32), torch.as_tensor(y_np).to(_DEV, f32)
+    x0 = 0.5 * torch.randn((SMC_PARTICLES, 3), generator=torch.Generator().manual_seed(seed),
+                           dtype=torch.float64)
+    if torch.device(_DEV).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = smc_host(seed, _log_prior_batch, _kernel_loglik(t, y), x0.numpy(),
+                   num_mutations=SMC_MUTATIONS, ess_threshold=0.5, max_stages=SMC_STAGES)
+    launches = _all_counts()
+    secs = _phase_end("smc", t0, launches)
+    one = _kernel_loglik(t, y)
+    _log(f"[smc] one likelihood evaluation alone: {_time_ms(lambda: one(x0[:1]), 10):.3f} ms")
+    profile_phase("smc likelihood", lambda: one(x0[:1]))
+    med = np.exp(np.median(res.particles, axis=0)) + 1e-3
+    rel = np.abs(med - np.asarray(SMC_TRUTH)) / np.asarray(SMC_TRUTH)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        mean, _, _ = pallas_smooth(_matern_lgssm(t, unconstrain(torch.as_tensor(med)).to(_DEV)), y)
+    rmse = float(np.sqrt(np.mean((mean.double().cpu().numpy() - f_np) ** 2)))
+    pred_s = time.perf_counter() - t0
+    ok_ = (res.final_beta == 1.0 and bool((rel <= SMC_RTOL).all()) and np.isfinite(rmse)
+           and rmse < SMC_TRUTH[2] and all(launches[k.name] > 0 for k in _scan_kernels()[:2]))
+    _log(f"[smc] N={SMC_N:,}, {SMC_PARTICLES} particles: {res.num_stages} stages, beta "
+         f"{res.final_beta:.4f}, logZ {res.log_evidence:.1f}, accept {res.acceptance:.3f}, "
+         f"{res.num_lik_evals} likelihood evaluations in {secs:.3f} s "
+         f"({1e3 * secs / res.num_lik_evals:.3f} ms per evaluation); posterior median "
+         f"(l, sf, sn) {np.round(med, 4).tolist()} vs truth {list(SMC_TRUTH)}: relative "
+         f"{np.round(rel, 4).tolist()} (<= {SMC_RTOL}); smoothed predictive at the median: rmse "
+         f"vs latent {rmse:.4f} (noise {SMC_TRUTH[2]}) in {pred_s:.3f} s {'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[smc] the SMC posterior failed a check")
+    return launches
+
+
+def nuts_phase(seed, smse_type2, failures):
+    """[nuts] benchmarks/ess.py --full on the card under "on": NUTS chains
+    in lockstep over the EEG FZ conditional (DTC, Z = X, N = M = 156,
+    float32, bounded_reparam(3.0)) through ``sample_conditional_posterior``,
+    the chains' Sigma_y factored and their columns whitened as one batch
+    by K6a (the VJPs' K6c; the M x M algebra is float64 ``torch.linalg``);
+    split R-hat and multi-chain ESS per parameter, ESS/s, samples/s,
+    divergences, acceptance.  At every chain's last draw the "on" logpost
+    and gradient against the float64 "off" one (beside the library's
+    float32), and the float32 type-II algebra's gap (``f32_algebra_gap``).
+    Then
+    ``predictive_mixture_scaled`` over 16 draws on the 100 test times, its
+    SMSE beside the type-II fit's from [eeg].  Returns the launches of the
+    sampler and the mixture (K6b launches in the mixture: the sampler's
+    M x M algebra is float64, ``models/bayes.py``)."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.data.eeg import TRAIN_POINTS, generate_synthetic_eeg
+    from gpar_at_scale_torch.inference.diagnostics import ess, split_rhat
+    from gpar_at_scale_torch.inference.hmc import value_and_grad
+    from gpar_at_scale_torch.models.bayes import (
+        bounded_reparam,
+        make_conditional_logpost,
+        predictive_mixture_scaled,
+        sample_conditional_posterior,
+    )
+
+    ds = generate_synthetic_eeg(seed=0)
+    n = TRAIN_POINTS
+    obs = [ds.channels.index(c) for c in EEG_OBSERVED]
+    X, X_te = ds.Y[:n, obs], ds.Y[n:, obs]
+    y, truth = ds.Y[:n, ds.channels.index("FZ")], ds.Y[n:, ds.channels.index("FZ")]
+    f32, f64 = torch.float32, torch.float64
+
+    def bounded(dtype):
+        lp = make_conditional_logpost(ds.t[:n], X, y, likelihood="dtc", Z=X, dtype=dtype,
+                                      device=_DEV)
+        return bounded_reparam(lp, bound=3.0)
+
+    try:
+        _set_dense_mode("on")
+        logpost_u, constrain = bounded(f32)
+        if torch.device(_DEV).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = sample_conditional_posterior(
+            torch.Generator(device=_DEV).manual_seed(seed), logpost_u, num_chains=NUTS_CHAINS,
+            num_samples=NUTS_SAMPLES, num_warmup=NUTS_WARMUP, max_depth=NUTS_DEPTH, dim=5,
+            dtype=f32, device=_DEV)
+        launches = _all_counts()
+        secs = _phase_end("nuts", t0, launches)
+        st = res.stats
+        pooled = constrain(res.samples).double().cpu().numpy()  # (C, S, 5)
+        rhat, ess_ = np.atleast_1d(split_rhat(pooled)), np.atleast_1d(ess(pooled))
+        n_div, n_tot = int(res.num_divergent), NUTS_CHAINS * NUTS_SAMPLES
+        leaves = st.num_calls
+        _log(f"[nuts] EEG FZ | F3-F6 (N = M = {n}, float32, 'on'): {NUTS_CHAINS} chains x "
+             f"({NUTS_WARMUP} + {NUTS_SAMPLES}) in {secs:.3f} s; {leaves} batched logpost calls "
+             f"({1e3 * secs / leaves:.3f} ms each, {st.num_readbacks} host readbacks); mean tree "
+             f"depth {float(st.mean_tree_depth.mean()):.3f}, step sizes "
+             f"{np.round(st.step_size.cpu().numpy(), 4).tolist()}")
+        _log(f"[nuts] split R-hat {np.round(rhat, 4).tolist()}; multi-chain ESS "
+             f"{np.round(ess_, 1).tolist()}; ESS/s (min) {ess_.min() / secs:.3f}; samples/s "
+             f"{n_tot / secs:.3f}; divergences {n_div} / {n_tot} ({100.0 * n_div / n_tot:.2f}%); "
+             f"mean accept {float(res.accept_prob):.4f}")
+        K6A, _, K6C = _dense()
+        ok_ = (n_div / n_tot < NUTS_DIV_RATE and bool(np.isfinite(pooled).all())
+               and bool((np.abs(pooled) < 3.0).all()) and bool((rhat <= NUTS_RHAT).all())
+               and launches[K6A.name] > 0 and launches[K6C.name] > 0)
+
+        # where a call's time goes: one batched value and gradient, alone and traced
+        vg, u_last = value_and_grad(logpost_u), res.samples[:, -1]
+        _log(f"[nuts] one batched value and gradient of {NUTS_CHAINS} chains alone: "
+             f"{_time_ms(lambda: vg(u_last), 10):.3f} ms (inside NUTS {1e3 * secs / leaves:.3f} ms)")
+        profile_phase("nuts logpost call", lambda: vg(u_last))
+
+        # every chain's last draw: the "on" float32 logpost against the float64
+        # "off" one, beside the library's float32 ("off" in float32)
+        u = res.samples[:, -1]
+        v_on, g_on = value_and_grad(logpost_u)(u)
+        _set_dense_mode("off")
+        v_off, g_off = value_and_grad(bounded(f64)[0])(u.double())
+        v_lib, g_lib = value_and_grad(bounded(f32)[0])(u)
+
+        def over(v, g):  # each chain's miss of a float32 path, in units of the fixed bounds
+            v_over = (v.double() - v_off).abs() / (NUTS_VALUE_RTOL * v_off.abs())
+            g_over = ((g.double() - g_off).abs() / (NUTS_GRAD_RTOL * g_off.abs() + NUTS_GRAD_ATOL))
+            return v_over.cpu().numpy(), g_over.amax(-1).cpu().numpy()
+
+        (v_k, g_k), (v_l, g_l) = over(v_on, g_on), over(v_lib, g_lib)
+        allow_v, allow_g = np.maximum(1.0, 2.0 * v_l), np.maximum(1.0, 2.0 * g_l)
+        _log(f"[nuts] the {NUTS_CHAINS} chains' last draws against float64 'off', in units of the "
+             f"bounds {NUTS_VALUE_RTOL} |v| and {NUTS_GRAD_RTOL} |g| + {NUTS_GRAD_ATOL}: 'on' values "
+             f"{np.round(v_k, 3).tolist()}, gradients {np.round(g_k, 3).tolist()}; the library's "
+             f"float32 values {np.round(v_l, 3).tolist()}, gradients {np.round(g_l, 3).tolist()}; "
+             f"'on' over its allowance max(1, 2 x library): {float((v_k / allow_v).max()):.3f}, "
+             f"{float((g_k / allow_g).max()):.3f}")
+        ok_ &= bool((v_k <= allow_v).all() and (g_k <= allow_g).all())
+        f32_algebra_gap(ds.t[:n], X, y, pooled, seed)
+
+        _set_dense_mode("on")
+        before = _all_counts()
+        t0 = time.perf_counter()
+        mean, var = predictive_mixture_scaled(None, constrain(res.samples), ds.t[:n], X, y, X,
+                                              ds.t[n:], X_te, num_theta=NUTS_THETA, dtype=f32,
+                                              device=_DEV)
+        _sync(_DEV)
+        pm_s = time.perf_counter() - t0
+        smse = _smse(mean, truth)
+        finite = bool(torch.isfinite(mean).all() and (var >= 0).all())
+        mixture = {k: c - before[k] for k, c in _all_counts().items()}
+        ok_ &= finite and all(mixture[k.name] > 0 for k in _dense())
+        _log(f"[nuts] predictive_mixture_scaled ({NUTS_THETA} draws, {truth.shape[0]} test times): "
+             f"{pm_s:.3f} s, SMSE {smse:.4f} (type-II scaled fit in [eeg] 'on': {smse_type2:.4f}); "
+             f"K6a/K6b/K6c launches {tuple(mixture[k.name] for k in _dense())}; finite {finite} "
+             f"{'ok' if ok_ else 'FAIL'}")
+    finally:
+        _set_dense_mode("off")
+    if not ok_:
+        failures.append("[nuts] the EEG posterior failed a check")
+    return {k: launches[k] + mixture[k] for k in launches}
+
+
+def f32_algebra_gap(t, X, y, pooled, seed):
+    """Why the sampler's DTC logpost forms its M x M algebra in float64:
+    the float32 algebra of the type-II bound, ``gp/dtc.py::dtc_objective``
+    under "on" (K6a for Sigma_y and K_uu, the library's float32 factor of
+    P = G_b + K_uu, K6b), against the float64 logpost, at NUTS_F32_POINTS
+    points around the posterior (its mean plus N(0, 1) per log-parameter,
+    within the bound) and at as many kept draws.  Prints the factorizations
+    that fail and the gap in nats where none does; a measurement, no check."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.gp.dtc import dtc_objective
+    from gpar_at_scale_torch.kernels import Matern52, time_kernel_only
+    from gpar_at_scale_torch.models.bayes import make_conditional_logpost
+    from gpar_at_scale_torch.ssm.markov import lgssm_of
+    from gpar_at_scale_torch.utils.params import unpack_gpar
+
+    f32, f64 = torch.float32, torch.float64
+    t32, X32, y32 = (torch.as_tensor(a).to(_DEV, f32) for a in (t, X, y))
+    draws = torch.as_tensor(pooled.reshape(-1, 5))
+    around = draws.mean(0) + torch.randn((NUTS_F32_POINTS, 5), generator=torch.Generator()
+                                         .manual_seed(seed), dtype=f64)
+    picks = np.linspace(0, draws.shape[0] - 1, NUTS_F32_POINTS).astype(np.int64)
+    _set_dense_mode("off")
+    lp64 = make_conditional_logpost(t, X, y, likelihood="dtc", Z=X, dtype=f64, device=_DEV)
+    for label, pts in (("around the posterior", around.clamp(-2.95, 2.95)),
+                       ("at kept draws", draws[picks])):
+        with torch.no_grad():
+            ref = lp64(pts.to(_DEV)).cpu().numpy()
+        _set_dense_mode("on")
+        gaps, failed = [], 0
+        for p, r in zip(pts.to(_DEV, f32), ref):
+            tl, ts, ol, osig, ns = unpack_gpar(p)
+            time_k = time_kernel_only(Matern52, tl, ts)
+            lg = lgssm_of(time_k, t32, ns**2, f32)
+            try:
+                with torch.no_grad():
+                    v = float(dtc_objective(Matern52(lengthscale=ol, variance=osig**2), lg, X32,
+                                            X32, y32, uu_ridge=ns**2, time_kernel=time_k, t=t32))
+            except torch.linalg.LinAlgError:  # the measured event: a float32 factor failed
+                failed += 1
+                continue
+            gaps.append(abs(v - 0.5 * float((p.double() ** 2).sum()) / 4.0 - r))
+        _set_dense_mode("off")
+        gaps = np.asarray(gaps)
+        _log(f"[nuts] float32 type-II algebra (dtc_objective 'on') vs the float64 logpost, "
+             f"{pts.shape[0]} points {label}: {failed} failed factorizations; |gap| median "
+             f"{np.median(gaps):.4g}, max {gaps.max():.4g} nats over the {gaps.size} others")
+
+
+def _blocked_temporal_logpost(t, y):
+    """``make_temporal_logpost``'s function on the float64 blocked engine
+    (``ssm/blocked_grad.py::blocked_loglik``, its closed-form gradient), on
+    the float32 inputs cast up, for a (C, 3) batch."""
+    import torch
+
+    from gpar_at_scale_torch.kernels import Matern52, time_kernel_only
+    from gpar_at_scale_torch.ssm.blocked_grad import blocked_loglik
+    from gpar_at_scale_torch.ssm.markov import lgssm_of
+    from gpar_at_scale_torch.utils.params import unpack_gp
+
+    t64, y64 = t.double(), y.double()
+
+    def logpost(q):
+        out = []
+        for qc in q:
+            l, sf, sn = unpack_gp(qc)
+            lg = lgssm_of(time_kernel_only(Matern52, l, sf), t64, sn**2, torch.float64)
+            out.append(blocked_loglik(lg, y64) - 0.5 * (qc * qc).sum() / 4.0)
+        return torch.stack(out)
+
+    return logpost
+
+
+def nuts_smc_phase(seed, failures):
+    """[nuts-smc] benchmarks/nuts_vs_smc.py at N = 1e5: NUTS on the temporal
+    GP's posterior with gradients through the kernel path
+    (``make_temporal_logpost``: K1/K2 forward, K4a/K4b backward, one chain
+    per call), and ``smc_host`` on the same likelihood (K1/K2); the
+    constrained posterior means must agree within 4 Monte-Carlo errors, and
+    the kernel path's value and gradient at the last draws must match the
+    float64 blocked engine's.
+    Returns both samplers' launches."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.inference.diagnostics import means_agree_within_mc_error, summarize
+    from gpar_at_scale_torch.inference.hmc import value_and_grad
+    from gpar_at_scale_torch.inference.nuts import nuts
+    from gpar_at_scale_torch.inference.smc import smc_host
+    from gpar_at_scale_torch.models.bayes import make_temporal_logpost
+
+    t_np, y_np, _ = million_smc_data(NS_N)
+    f32 = torch.float32
+    t, y = torch.as_tensor(t_np).to(_DEV, f32), torch.as_tensor(y_np).to(_DEV, f32)
+    logpost = make_temporal_logpost(t, y, dtype=f32, device=_DEV)
+    gen = torch.Generator(device=_DEV).manual_seed(seed)
+    x0s = 0.3 * torch.randn((NS_CHAINS, 3), generator=gen, dtype=f32, device=_DEV)
+    if torch.device(_DEV).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = nuts(gen, value_and_grad(logpost), x0s, num_samples=NS_SAMPLES, num_warmup=NS_WARMUP,
+               max_depth=NS_DEPTH)
+    nuts_launches = _all_counts()
+    nuts_s = _phase_end("nuts-smc", t0, nuts_launches)
+    chains = np.exp(res.samples.double().cpu().numpy()) + 1e-3
+    d_nuts = summarize(chains)
+    # the kernel path's value and gradient at the last draws against the float64 blocked engine
+    q = res.samples[:, -1]
+    v_k, g_k = value_and_grad(logpost)(q)
+    v_r, g_r = value_and_grad(_blocked_temporal_logpost(t, y))(q.double())
+    v_gap = float((v_k.double() - v_r).abs().max()) / NS_N
+    grads_ok = [_grad_gap(gk, gr, NS_N) for gk, gr in zip(g_k.double().cpu().numpy(),
+                                                          g_r.cpu().numpy())]
+    engines_ok = v_gap <= FULL_TRACE_ATOL and all(o for o, _ in grads_ok)
+    _log(f"[nuts-smc] the {NS_CHAINS} chains' last draws, kernel path vs float64 blocked engine: "
+         f"|value| gap / N {v_gap:.3e} (atol {FULL_TRACE_ATOL}); gradients: "
+         + "; ".join(gap for _, gap in grads_ok) + f" {'ok' if engines_ok else 'FAIL'}")
+    vg, q1 = value_and_grad(logpost), res.samples[:1, -1]
+    _log(f"[nuts-smc] one chain's value and gradient alone: {_time_ms(lambda: vg(q1), 10):.3f} ms")
+    profile_phase("nuts-smc logpost call", lambda: vg(q1))
+    _zero_counts()
+    t0 = time.perf_counter()
+    x0 = 0.5 * torch.randn((SMC_PARTICLES, 3), generator=torch.Generator().manual_seed(seed + 1),
+                           dtype=torch.float64)
+    res_s = smc_host(seed, _log_prior_batch, _kernel_loglik(t, y), x0.numpy(),
+                     num_mutations=SMC_MUTATIONS, ess_threshold=0.5, max_stages=NS_STAGES)
+    smc_launches = _all_counts()
+    smc_s = _phase_end("nuts-smc", t0, smc_launches)
+    cloud = (np.exp(res_s.particles) + 1e-3)[None]
+    d_smc = summarize(cloud)
+    z = np.abs(d_nuts.mean - d_smc.mean) / np.sqrt(d_nuts.mcse**2 + d_smc.mcse**2)
+    agree = means_agree_within_mc_error(chains, cloud, z=4.0)
+    n_div = int(res.num_divergent.sum())
+    ok_ = (agree and engines_ok and res_s.final_beta == 1.0 and bool(np.isfinite(chains).all())
+           and all(nuts_launches[k.name] > 0 for k in _scan_kernels() if not k.name.startswith("K3")))
+    _log(f"[nuts-smc] N={NS_N:,}: NUTS {NS_CHAINS} chains x ({NS_WARMUP} + {NS_SAMPLES}) in "
+         f"{nuts_s:.3f} s, {res.num_calls} logpost calls ({1e3 * nuts_s / res.num_calls:.3f} ms "
+         f"each, {res.num_readbacks} host readbacks), divergences {n_div}, accept "
+         f"{np.round(res.accept_prob.cpu().numpy(), 3).tolist()}, R-hat "
+         f"{np.round(d_nuts.rhat, 4).tolist()}, ESS {np.round(d_nuts.ess, 1).tolist()}; SMC "
+         f"{SMC_PARTICLES} particles, {res_s.num_stages} stages, {res_s.num_lik_evals} evaluations "
+         f"in {smc_s:.3f} s ({1e3 * smc_s / res_s.num_lik_evals:.3f} ms each)")
+    _log(f"[nuts-smc] mean (l, sf, sn): NUTS {np.round(d_nuts.mean, 5).tolist()} +- "
+         f"{np.round(d_nuts.mcse, 5).tolist()}; SMC {np.round(d_smc.mean, 5).tolist()} +- "
+         f"{np.round(d_smc.mcse, 5).tolist()}; |z| {np.round(z, 3).tolist()} (< 4): agree {agree} "
+         f"{'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[nuts-smc] NUTS and SMC disagree or a check failed")
+    return {k: nuts_launches[k] + smc_launches[k] for k in nuts_launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1973,7 +2531,7 @@ def main(argv=None):
     del model
 
     # 8. the dense path's main path: the EEG example through K6a-c
-    eeg_launches, seq_ends = eeg_phase(failures)
+    eeg_launches, seq_ends, eeg_smse_fz = eeg_phase(failures)
     # 10. the EEG chain's conditionals fitted in parallel under "on" and "off"
     eeg_par_launches = eeg_parallel(seq_ends, failures)
     for key, a, b in zip(("K6a", "K6b", "K6c"), eeg_launches, eeg_par_launches):
@@ -1987,9 +2545,21 @@ def main(argv=None):
         records[key]["launches"] = train_launches[k.name]
         records[key]["launches_by_path"] = {path: counts[k.name] for path, counts in (
             ("train", train_launches), ("parallel", par_launches), ("api", api_launches))}
+    # 13-16. posterior draws and the samplers, each through its entry point
+    new_paths = (
+        ("ffbs", ffbs_phase(args.seed, failures)),
+        ("smc", smc_phase(args.seed, failures)),
+        ("nuts", nuts_phase(args.seed, eeg_smse_fz, failures)),
+        ("nuts-smc", nuts_smc_phase(args.seed, failures)),
+    )
+    from gpar_at_scale_torch.ops import KERNELS
+
+    for key, k in zip(("K1", "K2", "K3", "K4a", "K4b", "K6a", "K6b", "K6c"), KERNELS):
+        records[key]["launches_by_path"].update({path: c[k.name] for path, c in new_paths})
     _log("[kernels] launches on the paths: training " + str(train_launches) + "; parallel fit "
          + str(par_launches) + "; api " + str(api_launches) + "; EEG 'on' K6a/K6b/K6c "
-         + f"{eeg_launches}, in parallel {eeg_par_launches}")
+         + f"{eeg_launches}, in parallel {eeg_par_launches}; "
+         + "; ".join(f"{path} {c}" for path, c in new_paths))
     # 12. the associative-scan engine, last: its autograd takes the most memory
     torch.cuda.empty_cache()
     assoc_phase(t, Y, params, failures)

@@ -70,8 +70,10 @@ from gpar_at_scale_torch.ssm.kalman import kalman_filter
 from gpar_at_scale_torch.ssm.markov import LGSSM, lgssm_of
 from gpar_at_scale_torch.utils.psd import (
     _pallas_dense_ok,
+    _raise_on_info,
     cho_solve,
     chol_solve,
+    chol_solve_ex,
     cholesky_psd,
     default_jitter,
     logdet_from_chol,
@@ -102,18 +104,28 @@ def _gram_from_white(white):
     return alpha @ alpha, beta.T @ alpha, beta.T @ beta
 
 
+def whiten_ex(Sigma, batch):
+    """(L^-1 batch, log det Sigma, info) with L = chol(Sigma) for Sigma
+    (..., N, N), batch (..., N, k): under the dense switch one K6a launch
+    for the whole batch, else ``torch.linalg``; the factorization's info
+    word (0, or the first pivot that failed, plus one) instead of a raise."""
+    if _pallas_dense_ok(Sigma, batch):
+        _, white, logdet, info = chol_solve_ex(Sigma, batch)
+        return white, logdet, info
+    L, info = torch.linalg.cholesky_ex(Sigma)
+    return solve_lower(L, batch), logdet_from_chol(L), info
+
+
 def dense_whiten(time_kernel: Kernel, t, R, batch):
     """Dense whitening: (L^-1 batch, log det Sigma_y) with
     L = chol(K_time + diag(R)); under the dense switch one K6a launch
-    (the JAX package's ``_whiten_all``, ``chol_solve(Sigma, batch)``)."""
+    (the JAX package's ``_whiten_all``, ``chol_solve(Sigma, batch)``).
+    Raises if Sigma_y is not positive definite."""
     t = t.to(batch.dtype)
     R = torch.as_tensor(R, dtype=batch.dtype, device=t.device).expand(t.shape[0])
-    Sigma = time_kernel(t[:, None], t[:, None]) + torch.diag(R)
-    if _pallas_dense_ok(Sigma, batch):
-        _, white, logdet = chol_solve(Sigma, batch)
-        return white, logdet
-    L = torch.linalg.cholesky(Sigma)
-    return solve_lower(L, batch), logdet_from_chol(L)
+    white, logdet, info = whiten_ex(time_kernel(t[:, None], t[:, None]) + torch.diag(R), batch)
+    _raise_on_info(info)
+    return white, logdet
 
 
 def _whiten_all(

@@ -56,10 +56,11 @@ def _as_kernel(k):
 def sq_dist(x, z):
     """Pairwise squared Euclidean distances ||x||^2 + ||z||^2 - 2 <x, z>,
     clamped at 0 against cancellation (full-precision matmul: see
-    ``device.py``)."""
+    ``device.py``).  Leading batch axes broadcast: x (..., N, D) scaled by
+    a batch of lengthscales gives a batch of distance matrices."""
     xn = (x * x).sum(-1)
     zn = (z * z).sum(-1)
-    d2 = xn[:, None] + zn[None, :] - 2.0 * (x @ z.T)
+    d2 = xn[..., :, None] + zn[..., None, :] - 2.0 * (x @ z.transpose(-1, -2))
     return torch.clamp(d2, min=0.0)
 
 

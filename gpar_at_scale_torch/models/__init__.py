@@ -1,3 +1,11 @@
+from gpar_at_scale_torch.models.bayes import (
+    BayesConditionalResult,
+    bounded_reparam,
+    make_conditional_logpost,
+    make_temporal_logpost,
+    predictive_mixture_scaled,
+    sample_conditional_posterior,
+)
 from gpar_at_scale_torch.models.gpar import (
     FittedConditional,
     FittedGP,
@@ -10,6 +18,12 @@ from gpar_at_scale_torch.models.gpar import (
 )
 
 __all__ = [
+    "BayesConditionalResult",
+    "bounded_reparam",
+    "make_conditional_logpost",
+    "make_temporal_logpost",
+    "predictive_mixture_scaled",
+    "sample_conditional_posterior",
     "FittedConditional",
     "FittedGP",
     "FittedGPAR",

@@ -20,9 +20,11 @@ in the three phases of the JAX package's ``pallas_suffix_scan``:
 The column axis C is the JAX package's ``ssm/blocked.py::
 blocked_suffix_scan`` contract (its TPU kernel takes one column): E and L
 are shared by the columns, g carries them.  It is the backward engine of
-the RTS smoother (``pallas_smooth``, C = 1) and of the disturbance-smoother
+the RTS smoother (``pallas_smooth``, C = 1), of the disturbance-smoother
 gradients (``ops/grad.py``: the adjoint r with C = 1 for one series, C =
-M + 1 for the whitened Gram, and the shared information matrix N).
+M + 1 for the whitened Gram, and the shared information matrix N), and of
+posterior draws by FFBS (``pallas_posterior_sample``: the S draws as the
+columns, v the draw).
 
 The block count is ``ssm.blocked.num_blocks_for(n)``, as for K1/K2: 16384
 blocks of 62 steps at n = 1e6.  ``suffix_reduce`` and ``suffix_replay`` are
@@ -39,9 +41,17 @@ import torch
 
 from gpar_at_scale_torch.ops.build import CudaKernel, aligned16, ptr, require_f32
 from gpar_at_scale_torch.ops.kalman import _as_f32, decorrelate_blocked, pallas_supported
-from gpar_at_scale_torch.ssm.blocked import _pad_block, _smooth_identity, _unblock, num_blocks_for
+from gpar_at_scale_torch.ssm.blocked import (
+    _pad_block,
+    _smooth_identity,
+    _unblock,
+    ffbs_elements,
+    num_blocks_for,
+    sample_from_moments,
+    smoothing_elements,
+)
 from gpar_at_scale_torch.ssm.markov import LGSSM
-from gpar_at_scale_torch.ssm.pkalman import _combine_smooth, _inv_small, _scan
+from gpar_at_scale_torch.ssm.pkalman import _combine_smooth, _scan
 
 K4A = CudaKernel(
     "K4a suffix_reduce", "suffix_scan", "suffix_reduce",
@@ -179,13 +189,7 @@ def pallas_smooth(lgssm: LGSSM, y, return_state: bool = False):
     step k+1's smoothed moments back to step k).
 
     The forward filter with moments runs on K1/K2, the backward pass on
-    K4a/K4b over the smoothing elements
-
-        E_k = P_k A_{k+1}^T Pp_{k+1}^-1,  g_k = m_k - E_k mp_{k+1},
-        L_k = P_k - E_k Pp_{k+1} E_k^T.
-
-    At the last step A_{k+1} = 0 and Pp_{k+1} = I stand in for the missing
-    next step, which gives the terminal element (0, m_N, P_N).
+    K4a/K4b over the smoothing elements (``ssm.blocked.smoothing_elements``).
 
     Dispatch, by the SDE's shape alone (``pallas_supported``): sum-kernel
     SDEs (state dim > 3 or H != e1) run the associative-scan smoother
@@ -200,19 +204,46 @@ def pallas_smooth(lgssm: LGSSM, y, return_state: bool = False):
             return sm.mean, sm.var, sm.ll[0]
         return sm.mean, sm.var, sm.ll[0], sm.ms[:, :, 0], sm.Ps, torch.zeros_like(sm.Ps)
     ll, _, _, m, P = decorrelate_blocked(lgssm, y, return_moments=True)
-    f32 = torch.float32
-    A, Q = lgssm.A.to(f32), lgssm.Q.to(f32)
-    d = A.shape[-1]
-    A_next = torch.cat([A[1:], A.new_zeros((1, d, d))])
-    Q_next = torch.cat([Q[1:], torch.eye(d, dtype=f32, device=A.device)[None]])
-    mp_next = (A_next @ m[:, :, None])[:, :, 0]
-    Pp_next = A_next @ P @ A_next.transpose(-1, -2) + Q_next
-    E = P @ A_next.transpose(-1, -2) @ _inv_small(Pp_next)
-    g = m - (E @ mp_next[:, :, None])[:, :, 0]
-    L = P - E @ Pp_next @ E.transpose(-1, -2)
+    E, g, L = smoothing_elements(lgssm, m, P)
     ms, Ps = suffix_scan(E, g, L)
     f_mean = ms[:, 0]
     f_var = torch.clamp(Ps[:, 0, 0], min=0.0)
     if not return_state:
         return f_mean, f_var, ll
     return f_mean, f_var, ll, ms, Ps, E
+
+
+# ---------------------------------------------------------------------------
+# Posterior draws (FFBS) on the kernels
+# ---------------------------------------------------------------------------
+
+
+def pallas_posterior_sample(generator: torch.Generator, lgssm: LGSSM, y, num_samples: int = 1,
+                            xi=None):
+    """Joint posterior draws of f given one float32 series, (num_samples, N):
+    the filter with moments on K1/K2, then the sampling pass, the affine
+    suffix x_k = g_s_k + E_k x_{k+1} over ``ssm.blocked.ffbs_elements``
+    (float64, cast to float32) on K4a/K4b with C = S (the kernels also
+    replay the congruence M, which the draws do not need: (N, d, d) more to
+    write).  ``xi`` (N, d, num_samples) replaces the standard normals drawn
+    from ``generator``.
+
+    Dispatch, by the SDE's shape alone (``pallas_supported``): sum-kernel
+    SDEs take the associative-scan filter and the tensor-code affine scan
+    (``ssm.blocked.sample_from_moments``) and launch nothing."""
+    lg = _as_f32(lgssm)
+    n, d = lg.num_steps, lg.dim
+    dev = lg.A.device
+    if xi is None:
+        xi = torch.randn((n, d, num_samples), generator=generator, dtype=torch.float32,
+                         device=generator.device)
+    xi = torch.as_tensor(xi).to(device=dev, dtype=torch.float32)
+    y = torch.as_tensor(y, device=dev).to(torch.float32)
+    if not pallas_supported(lgssm):
+        from gpar_at_scale_torch.ssm.pkalman import parallel_filter
+
+        res = parallel_filter(lg, y)
+        return sample_from_moments(lg, res.m[:, :, 0], res.P, xi)
+    _, _, _, m, P = decorrelate_blocked(lgssm, y, return_moments=True)
+    x, _ = suffix_scan(*ffbs_elements(lgssm, m, P, xi, torch.float32))
+    return x[:, 0, :].T

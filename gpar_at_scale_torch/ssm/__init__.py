@@ -1,9 +1,23 @@
-from gpar_at_scale_torch.ssm.blocked import blocked_filter, blocked_smooth, blocked_suffix_scan
-from gpar_at_scale_torch.ssm.kalman import decorrelate, kalman_filter, logpdf, rts_smooth
+from gpar_at_scale_torch.ssm.blocked import (
+    blocked_affine_suffix_scan,
+    blocked_filter,
+    blocked_posterior_sample,
+    blocked_smooth,
+    blocked_suffix_scan,
+    ffbs_draw,
+)
+from gpar_at_scale_torch.ssm.kalman import (
+    decorrelate,
+    kalman_filter,
+    logpdf,
+    posterior_sample,
+    rts_smooth,
+)
 from gpar_at_scale_torch.ssm.markov import LGSSM, SDE, discretize, lgssm_of, to_sde
 
 __all__ = [
     "LGSSM", "SDE", "discretize", "lgssm_of", "to_sde",
-    "decorrelate", "kalman_filter", "logpdf", "rts_smooth",
-    "blocked_filter", "blocked_smooth", "blocked_suffix_scan",
+    "decorrelate", "kalman_filter", "logpdf", "posterior_sample", "rts_smooth",
+    "blocked_affine_suffix_scan", "blocked_filter", "blocked_posterior_sample", "blocked_smooth",
+    "blocked_suffix_scan", "ffbs_draw",
 ]

@@ -7,6 +7,8 @@ blocks), take an associative prefix over the B block totals, then replay
 each block from its known filtered init.  The smoother is the same schedule
 in reverse over the (E, g, L) smoothing elements.  It is the large-N
 smoother of ``predict_scaled`` and of the first output's predictive.
+Posterior draws by FFBS (``blocked_posterior_sample``) run the affine half
+of that reverse scan over pre-drawn noises.
 
 On the card every loop iteration is a handful of small launches, so the
 block count is set for the GPU (``NUM_BLOCKS``): enough blocks that T stays
@@ -26,6 +28,7 @@ from gpar_at_scale_torch.ssm.pkalman import (
     _combine_fast,
     _combine_smooth,
     _filter_elements,
+    _inv_small,
     _scan,
     _smoother_elements,
 )
@@ -223,3 +226,209 @@ def blocked_smooth(
     if single:
         f_mean = f_mean[:, 0]
     return SmoothResult(mean=f_mean, var=torch.clamp(f_var, min=0.0), ll=res.ll, ms=ms, Ps=Ps)
+
+
+# ---------------------------------------------------------------------------
+# Posterior draws by forward filtering, backward sampling (FFBS)
+#
+# The backward-sampling conditionals are the smoothing elements: with
+# E_k = P_k A_{k+1}^T Pp_{k+1}^-1,
+#     x_k | x_{k+1} ~ N(m_k + E_k (x_{k+1} - mp_{k+1}), L_k),
+#     L_k = P_k - E_k Pp_{k+1} E_k^T,
+# i.e. the smoothing elements (E, g, L) (last element (0, m_N, P_N)).
+# With every step's noise drawn up front (eta_k = chol(L_k) xi_k) a joint
+# draw is the affine suffix x_k = (g_k + eta_k) + E_k x_{k+1}: one blocked
+# reverse scan instead of the O(N)-depth ``ssm/kalman.py::posterior_sample``.
+#
+# Precision is decided in one place, ``ffbs_elements``: every route of
+# ``blocked_posterior_sample`` (the kernels, the sum-kernel route, the
+# tensor code with or without ``filter_result``) forms (E, g, L) and the
+# noise chol(L) xi there, in float64, from the filter's moments.
+# ---------------------------------------------------------------------------
+
+
+def _cholesky_small(P):
+    """Lower Cholesky factors of a batch of small (..., d, d) matrices,
+    elementwise: NaN or inf where a matrix is not positive definite, as the
+    JAX package's factorization returns."""
+    d = P.shape[-1]
+    L = [[torch.zeros_like(P[..., 0, 0])] * d for _ in range(d)]
+    for j in range(d):
+        s = P[..., j, j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        L[j][j] = torch.sqrt(s)
+        for i in range(j + 1, d):
+            t = P[..., i, j]
+            for k in range(j):
+                t = t - L[i][k] * L[j][k]
+            L[i][j] = t / L[j][j]
+    return torch.stack([torch.stack(row, -1) for row in L], -2)
+
+
+def _chol_floor(P):
+    """Batched small-dim Cholesky robust to degenerate FFBS conditionals.
+
+    L_k = P_k - E_k Pp_{k+1} E_k^T cancels to about machine epsilon at
+    near-deterministic transitions (tiny time gaps); in float32 the
+    residual can be indefinite far above any fixed jitter (the JAX package
+    measured NaN draws at N = 20k with gaps of 1e-3 lengthscales).  Two
+    guards: a jitter relative to each step's trace, and any step whose
+    factor still comes out non-finite falls back to the square root of the
+    diagonal -- at such steps the conditional noise is O(eps), so dropping
+    its correlation is harmless."""
+    d = P.shape[-1]
+    eps, rel = (1e-12, 1e-10) if P.dtype == torch.float64 else (1e-8, 1e-5)
+    eye = torch.eye(d, dtype=P.dtype, device=P.device)
+    tr = torch.diagonal(P, dim1=-2, dim2=-1).sum(-1) / d
+    jit = eps + rel * torch.clamp(tr, min=0.0)
+    L = _cholesky_small(P + jit[..., None, None] * eye)
+    diag = torch.sqrt(torch.clamp(torch.diagonal(P, dim1=-2, dim2=-1), min=0.0) + eps)
+    bad = ~torch.isfinite(L).all(-1).all(-1)
+    return torch.where(bad[..., None, None], torch.diag_embed(diag), L)
+
+
+def _combine_affine(later, earlier):
+    """(earlier o later) of the affine part only: x_k = g_k + E_k x_later."""
+    E_l, g_l = later
+    E_e, g_e = earlier
+    return E_e @ E_l, E_e @ g_l + g_e
+
+
+def _affine_identity(B, d, C, dtype, device):
+    eye = torch.eye(d, dtype=dtype, device=device).expand(B, d, d)
+    return eye, torch.zeros((B, d, C), dtype=dtype, device=device)
+
+
+def blocked_affine_suffix_scan(E, g, num_blocks=None, terminal=None):
+    """``blocked_suffix_scan`` restricted to its affine half (E, g): the
+    FFBS recursion x_k = g_k + E_k x_{k+1} needs no congruence L.
+    E (n, d, d), g (n, d, C); ``terminal`` an optional (d, C) state after
+    the last step (E_t = 0).  Returns the composed (E (n, d, d), x (n, d, C))."""
+    n, d, C = E.shape[0], E.shape[-1], g.shape[-1]
+    dtype, dev = E.dtype, E.device
+    B = num_blocks_for(n, num_blocks)
+    T = -(-n // B)
+    ident = _affine_identity(1, d, C, dtype, dev)
+    elems = tuple(_pad_block(e, B, T, i[0]) for e, i in zip((E, g), ident))
+
+    suffix = tuple(x.new_empty((T,) + x.shape[1:]) for x in elems)
+    carry = _affine_identity(B, d, C, dtype, dev)
+    for t in range(T - 1, -1, -1):
+        carry = _combine_affine(carry, tuple(e[t] for e in elems))
+        for s, c in zip(suffix, carry):
+            s[t] = c
+
+    scanned = _scan(_combine_affine, carry, reverse=True)
+    later = tuple(torch.cat([s[1:], i]) for s, i in zip(scanned, ident))
+    if terminal is not None:
+        x_t = torch.as_tensor(terminal, dtype=dtype, device=dev).reshape(1, d, C)
+        later = _combine_affine((torch.zeros_like(later[0]), x_t.expand(B, d, C)), later)
+    out = _combine_affine(later, suffix)  # later (B, ...) broadcasts over T
+    return tuple(_unblock(x, n) for x in out)
+
+
+def smoothing_elements(lgssm: LGSSM, m, P, dtype=torch.float32):
+    """The smoothing elements, in ``dtype``, from the filtered moments
+    m (N, d), P (N, d, d):
+
+        E_k = P_k A_{k+1}^T Pp_{k+1}^-1,  g_k = m_k - E_k mp_{k+1},
+        L_k = P_k - E_k Pp_{k+1} E_k^T,
+
+    with the predicted moments formed again from (A, Q).  At the last step
+    A_{k+1} = 0 and Pp_{k+1} = I stand in for the missing next step, which
+    gives the terminal element (0, m_N, P_N).  Returns E (N, d, d),
+    g (N, d), L (N, d, d)."""
+    A, Q, m, P = (x.to(dtype) for x in (lgssm.A, lgssm.Q, m, P))
+    d = A.shape[-1]
+    A_next = torch.cat([A[1:], A.new_zeros((1, d, d))])
+    Q_next = torch.cat([Q[1:], torch.eye(d, dtype=dtype, device=A.device)[None]])
+    mp_next = (A_next @ m[:, :, None])[:, :, 0]
+    Pp_next = A_next @ P @ A_next.transpose(-1, -2) + Q_next
+    E = P @ A_next.transpose(-1, -2) @ _inv_small(Pp_next)
+    g = m - (E @ mp_next[:, :, None])[:, :, 0]
+    L = P - E @ Pp_next @ E.transpose(-1, -2)
+    return E, g, L
+
+
+def ffbs_elements(lgssm: LGSSM, m, P, xi, dtype):
+    """The inputs (E, g_s, L) of FFBS's sampling scan, in ``dtype``, from the
+    filtered moments m (N, d), P (N, d, d) and standard normals xi
+    (N, d, S): the smoothing elements and g_s = g + chol(L) xi
+    (``_chol_floor``), formed in float64 and then cast.
+
+    At small time gaps L_k = P_k - E_k Pp_{k+1} E_k^T is many orders of
+    magnitude below P_k (1e-11 of it at gaps of 1e-3 lengthscales for
+    Matern-5/2), so in float32 the difference is rounding, and its floored
+    square root injects noise far above the true one: on the CPU the draws
+    of a 2e4-step series came out with 2.4 times the smoothed variance.  In
+    float64 it holds to about 1e-5 of L_k; a float32 scan then carries a
+    noise well above its own rounding.  The JAX package forms them in the
+    working precision."""
+    f64 = torch.float64
+    E, g, L = smoothing_elements(lgssm, m, P, f64)
+    g_s = g[:, :, None] + _chol_floor(L) @ xi.to(device=E.device, dtype=f64)
+    return tuple(x.to(dtype).contiguous() for x in (E, g_s, L))
+
+
+def ffbs_draw(E, g, L, xi, num_blocks=None, x_term=None):
+    """Joint posterior draws of the state from given FFBS elements:
+    E (n, d, d), g (n, d, 1), L (n, d, d), xi (n, d, S) standard normals,
+    x_term an optional (d, S) draw of the step after the series.  Returns
+    x (n, d, S).  The elements are used in their own precision, as in the
+    JAX package; ``blocked_posterior_sample`` forms them in float64
+    (``ffbs_elements``) instead, since in float32 L is rounding at small
+    time gaps."""
+    g_s = g + _chol_floor(L) @ xi
+    _, x = blocked_affine_suffix_scan(E, g_s, num_blocks, terminal=x_term)
+    return x
+
+
+def sample_from_moments(lgssm: LGSSM, m, P, xi, num_blocks=None):
+    """Joint draws of f = H x, (S, N), from the filtered moments m (N, d),
+    P (N, d, d) and standard normals xi (N, d, S): ``ffbs_elements`` cast to
+    the LGSSM's dtype, then the tensor-code affine suffix scan."""
+    dtype = lgssm.A.dtype
+    E, g_s, _ = ffbs_elements(lgssm, m, P, xi, dtype)
+    _, x = blocked_affine_suffix_scan(E, g_s, num_blocks)
+    return torch.einsum("d,nds->sn", lgssm.H.to(dtype), x)
+
+
+def blocked_posterior_sample(
+    generator: torch.Generator,
+    lgssm: LGSSM,
+    y,
+    num_samples: int = 1,
+    num_blocks=None,
+    filter_result: FilterResult = None,
+    xi=None,
+):
+    """Joint posterior draws of f = H x given one observation column (the
+    reference's ``posterior_rand``): (num_samples, N).
+
+    ``filter_result``: a ``blocked_filter`` result, to stage the forward
+    and the sampling pass apart.  ``xi``: (N, d, num_samples) standard
+    normals that replace the draw from ``generator`` (the deterministic
+    hook that holds the engines to each other).
+
+    A float32 LGSSM with no ``filter_result`` goes to
+    ``ops/smoother.py::pallas_posterior_sample`` (for an SDE the scan
+    kernels take: K1/K2 forward, K4a/K4b backward, their plain versions on
+    CPU tensors); everything else runs the tensor-code blocked filter and
+    affine suffix scan here.  Every route forms its elements and noise with
+    ``ffbs_elements``, in float64."""
+    Y, _ = _ensure_batch(y)
+    if Y.shape[1] != 1:
+        raise ValueError("blocked_posterior_sample expects one observation column")
+    n, d = lgssm.num_steps, lgssm.dim
+    dtype, dev = lgssm.A.dtype, lgssm.A.device
+    if filter_result is None and dtype == torch.float32:
+        from gpar_at_scale_torch.ops.smoother import pallas_posterior_sample
+
+        return pallas_posterior_sample(generator, lgssm, Y[:, 0], num_samples, xi=xi)
+    res = filter_result if filter_result is not None else blocked_filter(lgssm, Y, num_blocks)
+    if xi is None:
+        xi = torch.randn((n, d, num_samples), generator=generator, dtype=dtype,
+                         device=generator.device)
+    xi = torch.as_tensor(xi).to(device=dev, dtype=dtype)
+    return sample_from_moments(lgssm, res.m[:, :, 0], res.P, xi, num_blocks)

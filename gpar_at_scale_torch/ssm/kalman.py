@@ -124,3 +124,33 @@ def rts_smooth(lgssm: LGSSM, y, filter_result: FilterResult = None) -> SmoothRes
     if single:
         f_mean = f_mean[:, 0]
     return SmoothResult(mean=f_mean, var=torch.clamp(f_var, min=0.0), ll=res.ll, ms=ms, Ps=Ps)
+
+
+def posterior_sample(generator: torch.Generator, lgssm: LGSSM, y, num_samples: int = 1):
+    """Joint posterior draws of f = H x given one observation column, by
+    forward filtering and backward sampling (the reference's
+    ``posterior_rand``, ``src/gp/tmp.jl:167``): (num_samples, N).  The
+    O(N)-depth oracle of ``ssm/blocked.py::blocked_posterior_sample``;
+    standard normals come from ``generator``, on its device."""
+    Y, _ = _ensure_batch(y)
+    if Y.shape[1] != 1:
+        raise ValueError("posterior_sample expects a single observation column")
+    res = kalman_filter(lgssm, Y)
+    n, d = lgssm.num_steps, lgssm.dim
+    dtype, dev = lgssm.A.dtype, lgssm.A.device
+    S = num_samples
+    eye = torch.eye(d, dtype=dtype, device=dev)
+    jitter = 1e-12 if dtype == torch.float64 else 1e-8
+
+    def noise(P):
+        xi = torch.randn((S, d), generator=generator, dtype=dtype, device=generator.device)
+        return xi.to(dev) @ torch.linalg.cholesky(P + jitter * eye).T
+
+    xs = [res.m[-1][:, 0][None, :] + noise(res.P[-1])]
+    for k in range(n - 2, -1, -1):
+        Pp_next = res.Pp[k + 1]
+        G = torch.linalg.solve(Pp_next, lgssm.A[k + 1] @ res.P[k]).T
+        cond_mean = res.m[k][:, 0][None, :] + (xs[-1] - res.mp[k + 1][:, 0][None, :]) @ G.T
+        xs.append(cond_mean + noise(res.P[k] - G @ Pp_next @ G.T))
+    x = torch.stack(xs[::-1])  # (N, S, d)
+    return torch.einsum("d,nsd->sn", lgssm.H.to(dtype), x)

@@ -13,7 +13,11 @@ and triangular solves go through ``torch.linalg``, or, switched on by
   hook, the counterpart of Pallas interpret mode).
 
 A factorization that fails raises ``torch.linalg.LinAlgError``, on either
-path, instead of returning NaNs.
+path, instead of returning NaNs; the ``_ex`` variants return the info word
+instead (0, or j + 1 for the first pivot j that is not positive, as
+``torch.linalg.cholesky_ex``), so that a batch of factorizations can mark
+the ones that failed.  The factorizations and solves take leading batch
+axes; the kernels take them on their grid.
 """
 
 from __future__ import annotations
@@ -63,16 +67,19 @@ def pallas_dense_mode() -> str:
 
 def _pallas_dense_ok(*tensors) -> bool:
     """True when K6a-c (or, under "interpret", their plain versions) take
-    this call: the switch is not off, every tensor is 2-D float32 (and on
-    the card under "on"), and the first is n x n with 8 <= n <= 512."""
+    this call: the switch is not off, every tensor is float32 (and on the
+    card under "on") and (..., n, k) with the first's leading batch axes,
+    which the kernels take on their grid, and the first is n x n with
+    8 <= n <= 512."""
     mode = pallas_dense_mode()
     if mode == "off" or (mode == "on" and not all(x.is_cuda for x in tensors)):
         return False
     from gpar_at_scale_torch.ops.dense import DENSE_N_MAX
 
-    if any(x.ndim != 2 or x.dtype != torch.float32 for x in tensors):
+    lead = tensors[0].shape[:-2]
+    if any(x.ndim < 2 or x.shape[:-2] != lead or x.dtype != torch.float32 for x in tensors):
         return False
-    return _DENSE_N_MIN <= tensors[0].shape[0] <= DENSE_N_MAX
+    return _DENSE_N_MIN <= tensors[0].shape[-1] <= DENSE_N_MAX
 
 
 def _raise_on_info(info):
@@ -85,40 +92,54 @@ def _raise_on_info(info):
         )
 
 
-def chol_solve(S, B):
-    """(U, W, logdet) with S = U^T U, W = U^-T B through K6a, for a call
-    that ``_pallas_dense_ok(S, B)`` admits; raises if S is not positive
-    definite."""
+def chol_solve_ex(S, B):
+    """(U, W, logdet, info) with S = U^T U, W = U^-T B through K6a, for a
+    call that ``_pallas_dense_ok(S, B)`` admits; does not raise."""
     from gpar_at_scale_torch.ops import dense
 
-    U, W, logdet, info = dense.chol_solve(S, B, plain=pallas_dense_mode() == "interpret")
+    return dense.chol_solve(S, B, plain=pallas_dense_mode() == "interpret")
+
+
+def chol_solve(S, B):
+    """``chol_solve_ex`` without the info word; raises if S is not positive
+    definite."""
+    U, W, logdet, info = chol_solve_ex(S, B)
     _raise_on_info(info)
     return U, W, logdet
 
 
-def cholesky_psd(K, jitter=None):
-    """Lower Cholesky factor of a PSD matrix with relative jitter."""
+def cholesky_psd_ex(K, jitter=None):
+    """(L, info): the lower Cholesky factor of K with relative jitter and
+    the factorization's info word; does not raise."""
     Kj = add_jitter(K, jitter)
     if _pallas_dense_ok(Kj):
-        U, _, _ = chol_solve(Kj, Kj.new_zeros((Kj.shape[0], 0)))
-        return U.T
-    return torch.linalg.cholesky(Kj)
+        U, _, _, info = chol_solve_ex(Kj, Kj.new_zeros(Kj.shape[:-1] + (0,)))
+        return U.transpose(-1, -2), info
+    return torch.linalg.cholesky_ex(Kj)
+
+
+def cholesky_psd(K, jitter=None):
+    """Lower Cholesky factor of a PSD matrix with relative jitter; raises if
+    the factorization fails."""
+    L, info = cholesky_psd_ex(K, jitter)
+    _raise_on_info(info)
+    return L
 
 
 def _solve(L, b, upper_of_L: bool):
-    vec = b.ndim == 1
-    b2 = b[:, None] if vec else b
-    if b2.ndim == 2 and L.ndim == 2 and _pallas_dense_ok(L, b2):
+    vec = b.ndim == L.ndim - 1
+    b2 = b[..., None] if vec else b
+    if b2.ndim == L.ndim and _pallas_dense_ok(L, b2):
         from gpar_at_scale_torch.ops import dense
 
         # The kernels take U = L^T: L^-1 b = U^-T b, L^-T b = U^-1 b.
         plain = pallas_dense_mode() == "interpret"
-        x = (dense.tri_u if upper_of_L else dense.tri_ut)(L.T, b2, plain)
+        x = (dense.tri_u if upper_of_L else dense.tri_ut)(L.transpose(-1, -2), b2, plain)
     elif upper_of_L:
         x = torch.linalg.solve_triangular(L.transpose(-1, -2), b2, upper=True)
     else:
         x = torch.linalg.solve_triangular(L, b2, upper=False)
-    return x[:, 0] if vec else x
+    return x[..., 0] if vec else x
 
 
 def solve_lower(L, b):

@@ -28,6 +28,7 @@ on the card.
 """
 
 import functools
+import importlib
 import math
 import re
 from pathlib import Path
@@ -1469,8 +1470,9 @@ def test_pallas_dense_dispatch_modes(rng, monkeypatch):
         assert calls == []
         cfg.engine.pallas_dense = "interpret"
         assert tpsd._pallas_dense_ok(S, b)
-        for bad in (S.double(), S[None], S[:7, :7], torch.eye(513)):
-            assert not tpsd._pallas_dense_ok(bad)
+        assert tpsd._pallas_dense_ok(S[None], b[None])  # a leading batch axis, on the grid
+        for bad in ((S.double(),), (S[None], b), (S[:7, :7],), (torch.eye(513),)):
+            assert not tpsd._pallas_dense_ok(*bad)
         L_int = tpsd.cholesky_psd(S)
         assert calls == [1]
         _close(L_int, _np(L_off), rtol=3e-5, atol=3e-5)
@@ -1800,7 +1802,9 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "gpar_at_scale_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
     names = {str(f.relative_to(REPO)) for f in files}
-    assert {"gpar_at_scale_torch/api.py", "gpar_at_scale_torch/data/toy.py"} <= names
+    assert {"gpar_at_scale_torch/api.py", "gpar_at_scale_torch/data/toy.py",
+            "gpar_at_scale_torch/models/bayes.py", "gpar_at_scale_torch/inference/nuts.py",
+            "gpar_at_scale_torch/inference/diagnostics.py"} <= names
     offenders = [str(f.relative_to(REPO)) for f in files if pat.search(f.read_text())]
     assert offenders == []
 
@@ -1988,3 +1992,455 @@ def test_cpu_tensors_take_plain_path(rng):
     _close(tdense.tri_ut(U, B), _np(tdense.tri_ut_plain(U, B)), rtol=0, atol=0)
     _close(tdense.tri_u(U, B), _np(tdense.tri_u_plain(U, B)), rtol=0, atol=0)
     assert all(k.launches == 0 for k in KERNELS)
+
+
+# ---------------------------------------------------------------------------
+# Samplers and posterior draws: inference/{diagnostics,hmc,nuts,smc,vi}.py,
+# ssm FFBS, models/bayes.py.  JAX is called on deterministic functions only
+# (the two RNGs differ); the samplers are held to analytic targets.
+# ---------------------------------------------------------------------------
+
+
+def _ar1_chains(rng, C, S, D, rho=0.6):
+    x = np.zeros((C, S, D))
+    x[:, 0] = rng.normal(size=(C, D))
+    for s in range(1, S):
+        x[:, s] = rho * x[:, s - 1] + np.sqrt(1 - rho**2) * rng.normal(size=(C, D))
+    return x + 0.05 * np.arange(C)[:, None, None]
+
+
+def test_diagnostics_match_jax(rng):
+    """(a) split R-hat, ESS, summarize and the MC-error comparison of the
+    numpy copy against the JAX package's, to 1e-12."""
+    from gpar_at_scale_tpu.inference import diagnostics as jd
+    from gpar_at_scale_torch.inference import diagnostics as td
+
+    a, b = _ar1_chains(rng, 4, 200, 3), _ar1_chains(rng, 3, 150, 3)
+    for x in (a, a[..., 0]):
+        _close(td.split_rhat(x), jd.split_rhat(x), rtol=1e-12)
+        _close(td.ess(x), jd.ess(x), rtol=1e-12)
+    for got, want in zip(td.summarize(a), jd.summarize(a)):
+        _close(got, want, rtol=1e-12)
+    for z in (0.5, 4.0):
+        assert td.means_agree_within_mc_error(a, b, z) == jd.means_agree_within_mc_error(a, b, z)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_hmc_programs():
+    """The JAX helpers, one chain and vmapped, jitted once."""
+    jh = importlib.import_module("gpar_at_scale_tpu.inference.hmc")
+    jn = importlib.import_module("gpar_at_scale_tpu.inference.nuts")
+    prec = jnp.asarray([[2.0, -0.9, 0.1], [-0.9, 1.5, 0.0], [0.1, 0.0, 0.7]])
+    lg = jax.value_and_grad(lambda q: -0.5 * q @ prec @ q)
+
+    def da_run(eps0, accs):
+        return jax.lax.scan(lambda s, a: (jh.da_update(s, a), None), jh.da_init(eps0), accs)[0]
+
+    def wf_run(xs):
+        st = jax.lax.scan(lambda s, x: (jh.welford_update(s, x), None), jh.welford_init(3), xs)[0]
+        return st, jh.welford_variance(st), jh.welford_variance(st, regularize=False)
+
+    def lf(q, p, eps, inv_mass):
+        return jh.leapfrog(lg, q, p, eps, inv_mass, 5)
+
+    one = [jax.jit(f) for f in (da_run, wf_run, lf, jn._is_turning, jh.effective_sample_size)]
+    many = [jax.jit(jax.vmap(f)) for f in (da_run, wf_run, lf, jn._is_turning,
+                                           jh.effective_sample_size)]
+    return np.asarray(prec), one, many
+
+
+def test_hmc_helpers_match_jax(rng):
+    """(b) dual averaging, Welford, leapfrog, the U-turn test and the
+    per-chain Geyer ESS against the JAX functions on the same inputs, one
+    chain and a (4, ...) batch against JAX's vmap, to 1e-12."""
+    th = importlib.import_module("gpar_at_scale_torch.inference.hmc")
+    tn = importlib.import_module("gpar_at_scale_torch.inference.nuts")
+    prec, one, many = _jax_hmc_programs()
+    P = _t(prec)
+    lg = th.value_and_grad(lambda q: -0.5 * ((q @ P) * q).sum(-1))
+    C = 4
+    accs = rng.uniform(size=(C, 20))
+    xs = rng.normal(size=(C, 12, 3))
+    q, p = rng.normal(size=(C, 3)), rng.normal(size=(C, 3))
+    eps, inv_mass = rng.uniform(0.05, 0.3, C), rng.uniform(0.5, 2.0, (C, 3))
+    pv = rng.normal(size=(3, C, 3))
+    chains = _ar1_chains(rng, C, 300, 2, rho=0.8)
+
+    def port(c):
+        batch = slice(None) if c is None else c
+        da = th.da_init(_t(np.full(C, 0.1)[batch]))
+        for a in (accs[batch].T if c is None else accs[c]):
+            da = th.da_update(da, _t(a))
+        d = 3
+        wf = th.welford_init(d, F64, () if c is not None else (C,))
+        for x in (xs[batch].transpose(1, 0, 2) if c is None else xs[c]):
+            wf = th.welford_update(wf, _t(x))
+        out = [tuple(da), (tuple(wf), th.welford_variance(wf), th.welford_variance(wf, False))]
+        out.append(th.leapfrog(lg, _t(q[batch]), _t(p[batch]), _t(eps[batch]), _t(inv_mass[batch]), 5))
+        out.append(tn._is_turning(*(_t(v[batch]) for v in pv), _t(inv_mass[batch])))
+        out.append(th.effective_sample_size(_t(chains[batch])))
+        return out
+
+    def jax_out(fns, c):
+        batch = slice(None) if c is None else c
+        return [fns[0](jnp.asarray(np.full(C, 0.1)[batch]), jnp.asarray(accs[batch])),
+                fns[1](jnp.asarray(xs[batch])),
+                fns[2](*(jnp.asarray(v[batch]) for v in (q, p, eps, inv_mass))),
+                fns[3](*(jnp.asarray(v[batch]) for v in pv), jnp.asarray(inv_mass[batch])),
+                fns[4](jnp.asarray(chains[batch]))]
+
+    for c, fns in ((1, one), (None, many)):
+        got = jax.tree_util.tree_leaves([_np(x) for x in jax.tree_util.tree_leaves(
+            port(c), is_leaf=torch.is_tensor)])
+        want = jax.tree_util.tree_leaves(jax_out(fns, c))
+        assert len(got) == len(want) == 16
+        for g_, w_ in zip(got, want):
+            _close(g_, w_, rtol=1e-12, atol=1e-14)
+
+
+def _ffbs_case(rng, n, dtype_j=jnp.float64, dtype_t=F64, t=None, nv=0.1):
+    """The JAX FFBS test's case (Matern-5/2, lengthscale 0.8, variance 1.2)
+    in both packages."""
+    t = np.sort(rng.uniform(0, 8, size=n)) if t is None else t
+    y = np.sin(2 * t) + rng.normal(size=n) * np.sqrt(nv)
+    jl = jmarkov.lgssm_of(jk.Matern52(lengthscale=0.8, variance=1.2), jnp.asarray(t, dtype_j), nv,
+                          dtype_j)
+    k = tk.Matern52(lengthscale=_t(0.8, dtype_t), variance=_t(1.2, dtype_t))
+    tl = tmarkov.lgssm_of(k, _t(t, dtype_t), nv, dtype_t)
+    return jl, tl, y
+
+
+def test_ffbs_matches_jax(rng):
+    """(c) FFBS draws against the JAX package's at n = 500, d = 3, S = 3,
+    given the same standard normals xi.
+
+    * ``ffbs_draw`` on the JAX package's elements: rtol 1e-9 of the largest
+      state (measured 2.7e-11).
+    * ``blocked_posterior_sample(xi=...)`` end to end.  Its smoothing
+      elements' L_k = P_k - E_k Pp_{k+1} E_k^T cancel to 1e-11 of their
+      scale here, so the draw moves with the filter's rounding: the JAX
+      package's own draw moves 7.3e-8 between 16 and 31 blocks.  The port
+      is held within 2 times that spread of the JAX draw (measured 5.1e-8).
+    * float32 at gaps of 5e-5 (1.4e-4 lengthscales), where the raw
+      factorization of L_k fails at most steps and ``_chol_floor`` falls
+      back: both packages' draws are finite, and the port's (the kernel
+      route, plain versions on the CPU) misses the port's float64 draw on
+      the same xi by at most 2 times the JAX package's float32 miss.
+    * float32 sum-kernel SDE (Matern-5/2 + Matern-1/2, d = 4) at the same
+      gaps, on the two routes the kernels do not take: the associative
+      filter's and the tensor code's given ``filter_result``.  Both form
+      their elements in float64 (``ffbs_elements``) and stay within 1e-2
+      smoothed sd of the float64 draw on the same xi (measured 1.7e-4);
+      ``ffbs_draw`` on the float32 elements misses by more than 0.1 sd
+      (measured 0.69), the cancellation the float64 elements avoid."""
+    n, S = 500, 3
+    jl, tl, y = _ffbs_case(rng, n)
+    xi = rng.normal(size=(n, 3, S))
+
+    @jax.jit
+    def jax_draws(y, xi):
+        res = jblocked.blocked_filter(jl, y[:, None], num_blocks=16)
+        E, g, L = jblocked._smoother_elements_fast(jl, res)
+        return (E, g, L, jblocked.ffbs_draw(E, g, L, xi, num_blocks=16),
+                *(jblocked.blocked_posterior_sample(None, jl, y, S, num_blocks=B, xi=xi)
+                  for B in (16, 31)))
+
+    E, g, L, x_j, f16, f31 = map(np.asarray, jax_draws(jnp.asarray(y), jnp.asarray(xi)))
+    x_t = tblocked.ffbs_draw(*(_t(v) for v in (E, g, L)), _t(xi))
+    _close(x_t, x_j, rtol=0, atol=1e-9 * np.abs(x_j).max())
+    f_t = tblocked.blocked_posterior_sample(None, tl, _t(y), S, xi=_t(xi))
+    spread = np.abs(f16 - f31).max()
+    assert 0 < spread < 1e-6
+    _close(f_t, f16, rtol=0, atol=2 * spread)
+
+    n2 = 1000
+    t2 = np.cumsum(rng.uniform(0.5, 1.5, n2)) * 5e-5
+    xi2 = rng.normal(size=(n2, 3, S))
+    port = {}
+    for dj, dt in ((jnp.float32, torch.float32), (jnp.float64, F64)):
+        jl2, tl2, y2 = _ffbs_case(np.random.default_rng(1), n2, dj, dt, t=t2, nv=0.09)
+        port[dt] = _np(tblocked.blocked_posterior_sample(None, tl2, _t(y2, dt), S, xi=_t(xi2, dt)))
+        if dt == torch.float32:
+            f_j32 = np.asarray(jax.jit(lambda y, xi: jblocked.blocked_posterior_sample(
+                None, jl2, y, S, xi=xi))(jnp.asarray(y2, dj), jnp.asarray(xi2, dj)))
+            _, _, _, m, P = tops_kalman.decorrelate_blocked(tl2, _t(y2, dt), return_moments=True)
+            L2 = tblocked.smoothing_elements(tl2, m, P, F64)[2]
+            raw_bad = int((~torch.isfinite(tblocked._cholesky_small(L2)).all(-1).all(-1)).sum())
+            assert raw_bad > n2 // 2, raw_bad
+    ref = port[F64]
+    assert np.isfinite(f_j32).all() and np.isfinite(port[torch.float32]).all()
+    miss_j, miss_t = (np.abs(d - ref).max() for d in (f_j32, port[torch.float32]))
+    assert miss_t <= 2 * miss_j, (miss_t, miss_j)
+
+    def sum_lgssm(dt):
+        k = (tk.Matern52(lengthscale=_t(0.8, dt), variance=_t(1.2, dt))
+             + tk.Matern12(lengthscale=_t(0.5, dt), variance=_t(0.3, dt)))
+        return tmarkov.lgssm_of(k, _t(t2, dt), 0.09, dt)
+
+    y3 = np.sin(2e3 * t2) + 0.3 * rng.normal(size=n2)
+    xi3 = rng.normal(size=(n2, 4, S))
+    l64, l32 = sum_lgssm(F64), sum_lgssm(torch.float32)
+    assert not tops_kalman.pallas_supported(l32)
+    ref = _np(tblocked.blocked_posterior_sample(None, l64, _t(y3), S, xi=_t(xi3)))
+    sd = _np(torch.sqrt(tkalman.rts_smooth(l64, _t(y3)).var))
+    y32, xi32 = _t(y3, torch.float32), _t(xi3, torch.float32)
+    res32 = tblocked.blocked_filter(l32, y32[:, None])
+    for f32_draw in (tblocked.blocked_posterior_sample(None, l32, y32, S, xi=xi32),
+                     tblocked.blocked_posterior_sample(None, l32, y32, S, xi=xi32,
+                                                       filter_result=res32)):
+        assert (np.abs(_np(f32_draw) - ref) / sd).max() <= 1e-2
+    raw = torch.einsum("d,nds->sn", l32.H, tblocked.ffbs_draw(
+        *tblocked._smoother_elements(l32, res32), xi32))
+    assert (np.abs(_np(raw) - ref) / sd).max() > 0.1
+
+
+def test_ffbs_moments_match_smoother(rng):
+    """(d) The port's sequential ``posterior_sample`` and blocked draws
+    against the RTS smoother's moments within Monte-Carlo error (the JAX
+    FFBS test's bounds: means within 5 and 8 MC standard errors, variances
+    within 20%, the lag-1 covariance H E_k Ps_{k+1} H^T within 6 standard
+    errors), n = 80, S = 4000."""
+    _, tl, y = _ffbs_case(rng, 80)
+    S = 4000
+    gen = torch.Generator().manual_seed(0)
+    f = _np(tblocked.blocked_posterior_sample(gen, tl, _t(y), S))
+    sm = tkalman.rts_smooth(tl, _t(y))
+    mean, var = _np(sm.mean), _np(sm.var)
+    sd = np.sqrt(var)
+    np.testing.assert_allclose(f.mean(0), mean, atol=5 * sd.max() / np.sqrt(S))
+    np.testing.assert_allclose(f.var(0), var, rtol=0.2, atol=1e-4)
+    E = _np(tblocked._smoother_elements(tl, tblocked.blocked_filter(tl, _t(y)))[0])
+    H = _np(tl.H)
+    cov_theory = np.einsum("i,nij,njk,k->n", H, E[:-1], _np(sm.Ps)[1:], H)
+    fc = f - f.mean(0)
+    np.testing.assert_allclose((fc[:, :-1] * fc[:, 1:]).mean(0), cov_theory,
+                               atol=6 * var.max() / np.sqrt(S))
+    f_seq = _np(tkalman.posterior_sample(gen, tl, _t(y), num_samples=S))
+    np.testing.assert_allclose(f_seq.mean(0), f.mean(0), atol=8 * sd.max() / np.sqrt(S))
+    np.testing.assert_allclose(f_seq.var(0), var, rtol=0.2, atol=1e-4)
+
+
+def _bayes_data(rng, n=64, m=8):
+    t = np.sort(rng.uniform(0, 5, n))
+    X = rng.normal(size=(n, 2))
+    y = np.sin(t) + 0.3 * X[:, 0] + 0.2 * rng.normal(size=n)
+    return t, X, y, X[:: n // m][:m]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_logposts():
+    """The JAX logposts' vmapped values and gradients at three points, and
+    the bounded reparameterization's."""
+    from gpar_at_scale_tpu.models import bayes as jbayes
+
+    t, X, y, Z = _bayes_data(np.random.default_rng(7))
+    P = 0.5 * np.random.default_rng(8).normal(size=(3, 5))
+    out = {}
+    for name in ("dtc", "exact", "temporal", "bounded"):
+        if name == "temporal":
+            lp, pts = jbayes.make_temporal_logpost(t, y), P[:, :3]
+        else:
+            lp = jbayes.make_conditional_logpost(t, X, y, likelihood="exact" if name == "exact"
+                                                 else "dtc", Z=Z)
+            pts = P
+        if name == "bounded":
+            lp = jbayes.bounded_reparam(lp, bound=3.0)[0]
+            pts = 4.0 * P
+        out[name] = (pts, *map(np.asarray, jax.jit(jax.vmap(jax.value_and_grad(lp)))(
+            jnp.asarray(pts))))
+    return (t, X, y, Z), out
+
+
+def test_bayes_logposts_match_jax(monkeypatch):
+    """(e) ``make_conditional_logpost`` (dtc and exact),
+    ``make_temporal_logpost`` and ``bounded_reparam``: values and
+    gradients of a (3, k) batch against the JAX logposts at the same three
+    points, N = 64, M = 8, float64, rtol 1e-8 (measured 3.8e-15 and 1.8e-14
+    relative to the largest, dtc).  A batch equals its rows called one by
+    one (to 1e-12 relative).  Above DENSE_N_MAX (lowered to 32 here) the
+    same functions take the float32 kernel path, each chain on its own:
+    values rtol 1e-6, gradients 1e-4 of the largest component against the
+    float64 JAX values (measured 3.9e-8 and 2.7e-6 for dtc, 5.2e-8 and
+    1.1e-7 for the temporal GP)."""
+    from gpar_at_scale_torch.inference.hmc import value_and_grad
+    from gpar_at_scale_torch.models import bayes as tbayes
+
+    (t, X, y, Z), want = _jax_logposts()
+
+    def make(name):
+        if name == "temporal":
+            return tbayes.make_temporal_logpost(t, y, device=CPU)
+        lp = tbayes.make_conditional_logpost(t, X, y, likelihood="exact" if name == "exact"
+                                             else "dtc", Z=Z, device=CPU)
+        return tbayes.bounded_reparam(lp, bound=3.0)[0] if name == "bounded" else lp
+
+    for name, (pts, v_j, g_j) in want.items():
+        lp = make(name)
+        v, g = value_and_grad(lp)(_t(pts))
+        _close(v, v_j, rtol=1e-8)
+        _close(g, g_j, rtol=0, atol=1e-8 * np.abs(g_j).max())
+        singles = torch.stack([lp(_t(p)) for p in pts])
+        _close(singles, _np(v), rtol=1e-12)
+    _, constrain = tbayes.bounded_reparam(lambda p: p.sum(-1), bound=3.0)
+    _close(constrain(_t(want["bounded"][0])), 3.0 * np.tanh(want["bounded"][0] / 3.0), rtol=1e-14)
+
+    monkeypatch.setattr(tbayes, "DENSE_N_MAX", 32)
+    for name in ("dtc", "temporal"):
+        pts, v_j, g_j = want[name]
+        v, g = value_and_grad(make(name))(_t(pts))
+        _close(v, v_j, rtol=1e-6)
+        _close(g, g_j, rtol=0, atol=1e-4 * np.abs(g_j).max())
+
+
+@pytest.mark.parametrize("mode", ["off", "interpret"])
+def test_failed_factorization_is_minus_inf_per_chain(mode, rng, monkeypatch):
+    """(h) A float32 DTC logpost whose dense factorization fails for one
+    chain of the batch (log-parameters (5, 5, 5, 5, -7): a near-constant
+    temporal covariance with noise 1e-6 of its scale) returns -inf and a
+    zero gradient for that chain only; the other chains keep the values
+    they have alone.  Under "interpret" the info word comes from K6a's
+    plain version, under "off" from ``torch.linalg.cholesky_ex``."""
+    from gpar_at_scale_torch.inference.hmc import value_and_grad
+    from gpar_at_scale_torch.models import bayes as tbayes
+
+    for v in _DENSE_ENV:
+        monkeypatch.delenv(v, raising=False)
+    if mode == "interpret":
+        monkeypatch.setenv("GPAR_PALLAS_DENSE_INTERPRET", "1")
+    t, X, y, Z = _bayes_data(rng)
+    lp = tbayes.make_conditional_logpost(t, X, y, Z=Z, dtype=torch.float32, device=CPU)
+    P = _t(np.vstack([0.5 * rng.normal(size=(2, 5)), [[5.0, 5.0, 5.0, 5.0, -7.0]]]), torch.float32)
+    v, g = value_and_grad(lp)(P)
+    assert bool(torch.isfinite(v[:2]).all()) and v[2] == -torch.inf
+    assert bool(torch.isfinite(g).all()) and bool((g[2] == 0).all()) and bool((g[:2] != 0).any())
+    for c in range(2):
+        _close(lp(P[c]), _np(v[c]), rtol=1e-6)
+
+
+def test_predictive_mixture_and_vi_match_jax(rng):
+    """(f) ``predictive_mixture_scaled`` against JAX given the same samples
+    (2 chains x 10 draws, 4 thetas), N = 64, M = 8, N* = 10: rtol 1e-8.
+    (g) ``predict_sparse_vi`` against JAX given the same fitted parameters
+    and Z, rtol 1e-8; ``fit_sparse_vi`` from the same ``init_log_params``
+    (L-BFGS, Z learned): the end point's ELBO within 1e-4 relative of JAX's
+    (the iterates are no parity target)."""
+    from gpar_at_scale_tpu.inference import vi as jvi
+    from gpar_at_scale_tpu.models import bayes as jbayes
+    from gpar_at_scale_torch.inference import vi as tvi
+    from gpar_at_scale_torch.models import bayes as tbayes
+
+    t, X, y, Z = _bayes_data(rng)
+    samples = 0.3 * rng.normal(size=(2, 10, 5))
+    t_star, X_star = rng.uniform(0, 5, 10), rng.normal(size=(10, 2))
+    mj, vj = jax.jit(lambda s: jbayes.predictive_mixture_scaled(None, s, t, X, y, Z, t_star, X_star,
+                                                                num_theta=4))(jnp.asarray(samples))
+    mt, vt = tbayes.predictive_mixture_scaled(None, samples, t, X, y, Z, t_star, X_star, num_theta=4,
+                                              device=CPU)
+    _close(mt, mj, rtol=1e-8)
+    _close(vt, vj, rtol=1e-8)
+
+    x = np.sort(rng.uniform(0, 5, 40))
+    yv = np.sin(2 * x) + 0.1 * rng.normal(size=40)
+    p0 = np.asarray([-0.5, 0.0, -1.5])
+    rj = jvi.fit_sparse_vi(None, jk.Matern52, x, yv, 6, init_log_params=p0, max_steps=100)
+    rt = tvi.fit_sparse_vi(None, tk.Matern52, x, yv, 6, init_log_params=p0, max_steps=100, device=CPU)
+    _close(rt.elbo, float(rj.elbo), rtol=1e-4)
+    x_star = np.linspace(-0.5, 5.5, 7)
+    fixed = tvi.SparseVIResult(log_params=_t(rj.log_params), Z=_t(rj.Z), elbo=None, num_steps=0)
+    want = jax.jit(lambda lp, Z: jvi.predict_sparse_vi(rj._replace(log_params=lp, Z=Z), jk.Matern52,
+                                                       x, yv, x_star))(rj.log_params, rj.Z)
+    for got, want in zip(tvi.predict_sparse_vi(fixed, tk.Matern52, x, yv, x_star), want):
+        _close(got, want, rtol=1e-8)
+
+
+def _std_normal(q):
+    return -0.5 * (q * q).sum(-1)
+
+
+def _rho9(q):
+    """One (2,) point: the samplers take it through value_and_grad(batched=False)."""
+    prec = torch.tensor([[1.0, -0.9], [-0.9, 1.0]], dtype=q.dtype) / (1 - 0.81)
+    return -0.5 * q @ prec @ q
+
+
+@pytest.mark.parametrize("sampler", ["hmc", "nuts"])
+def test_samplers_hit_gaussian_targets(sampler):
+    """(h) HMC and NUTS, 4 chains in lockstep, on the standard normal (the
+    JAX sampler tests' bounds: mean within 0.15, variance within 0.2, no
+    divergence) and the rho = 0.9 Gaussian (covariance within 0.25), the
+    latter written for one point and batched by ``value_and_grad(...,
+    batched=False)``; NUTS's 4 chains reach split R-hat < 1.05."""
+    from gpar_at_scale_torch.inference import diagnostics as td
+    from gpar_at_scale_torch.inference.hmc import hmc, value_and_grad
+    from gpar_at_scale_torch.inference.nuts import nuts
+
+    gen = torch.Generator().manual_seed(0)
+
+    def run(fn, x0, S, W):
+        lg = value_and_grad(fn, batched=fn is not _rho9)
+        if sampler == "hmc":
+            return hmc(gen, lg, x0, num_samples=S, num_warmup=W, num_leapfrog=8)
+        return nuts(gen, lg, x0, num_samples=S, num_warmup=W, max_depth=6)
+
+    res = run(_std_normal, torch.ones(4, 3, dtype=F64), 400, 200)
+    s = _np(res.samples).reshape(-1, 3)
+    assert int(res.num_divergent.sum()) == 0
+    np.testing.assert_allclose(s.mean(0), 0.0, atol=0.15)
+    np.testing.assert_allclose(s.var(0), 1.0, atol=0.2)
+    assert bool(((res.accept_prob > 0.6) & (res.accept_prob <= 1.0)).all())
+    if sampler == "nuts":
+        assert float(res.mean_tree_depth.min()) >= 1.0
+        assert (td.split_rhat(_np(res.samples)) < 1.05).all()
+    res = run(_rho9, torch.zeros(4, 2, dtype=F64), 300, 200)
+    cov = np.cov(_np(res.samples).reshape(-1, 2).T)
+    np.testing.assert_allclose(cov, [[1.0, 0.9], [0.9, 1.0]], atol=0.25)
+
+
+def test_nuts_nan_region_does_not_poison_stats():
+    """(h) A logpost that is NaN outside |q|^2 = 9 (the float32 overflow of
+    extreme hyperparameters) registers as divergences with acceptance 0:
+    the acceptance, step sizes and draws stay finite (the JAX test's
+    bounds), one chain and four in lockstep."""
+    from gpar_at_scale_torch.inference.hmc import value_and_grad
+    from gpar_at_scale_torch.inference.nuts import nuts
+
+    def lp(q):
+        return torch.where((q * q).sum(-1) > 9.0, torch.nan, -0.5 * (q * q).sum(-1))
+
+    for x0 in (torch.full((3,), 0.1), torch.full((4, 3), 0.1)):
+        res = nuts(torch.Generator().manual_seed(1), value_and_grad(lp), x0, num_samples=100,
+                   num_warmup=100)
+        acc = _np(res.accept_prob)
+        assert np.isfinite(acc).all() and acc.mean() > 0.3
+        assert np.isfinite(_np(res.samples)).all()
+        assert bool(torch.isfinite(res.step_size).all() and (res.step_size > 0).all())
+
+
+def test_smc_gaussian_evidence():
+    """(h) ``smc`` (tensors) and ``smc_host`` (numpy bookkeeping) on prior
+    N(0, 1), likelihood N(x | 1, 0.5^2) per dimension: posterior mean and
+    variance within 0.08 and log-evidence within 0.15 of the closed form
+    (the JAX tests' bounds), 2000 particles, 8 mutations."""
+    from gpar_at_scale_torch.inference.smc import smc, smc_host
+
+    dim, s2 = 2, 0.25
+
+    def log_prior(x):
+        return -0.5 * (x * x).sum(-1) - 0.5 * dim * math.log(2 * math.pi)
+
+    def log_lik(x):
+        return -0.5 * ((x - 1.0) ** 2).sum(-1) / s2 - 0.5 * dim * math.log(2 * math.pi * s2)
+
+    post_mean, post_var = 1.0 / (1.0 + s2), s2 / (1.0 + s2)
+    logZ = dim * (-0.5 * np.log(2 * np.pi * (1 + s2)) - 0.5 / (1 + s2))
+    gen = torch.Generator().manual_seed(0)
+    x0 = torch.randn((2000, dim), generator=gen, dtype=F64)
+    res = smc(gen, log_prior, log_lik, x0, num_mutations=8)
+    host = smc_host(1, lambda x: _np(log_prior(_t(x))), lambda x: _np(log_lik(_t(x))), _np(x0),
+                    num_mutations=8)
+    assert float(res.final_beta) == 1.0 and host.final_beta == 1.0
+    assert host.num_lik_evals == 2000 * (1 + 8 * host.num_stages)
+    for p, z in ((_np(res.particles), float(res.log_evidence)), (host.particles, host.log_evidence)):
+        np.testing.assert_allclose(p.mean(0), post_mean, atol=0.08)
+        np.testing.assert_allclose(p.var(0), post_var, atol=0.08)
+        np.testing.assert_allclose(z, logZ, atol=0.15)
