@@ -90,7 +90,24 @@ Phases, each of which fails the run:
    gradients through K1/K2 and K4a/K4b) and ``smc_host`` (64 particles) on
    the same temporal likelihood; posterior means within 4 MC errors; the
    kernel path's value and gradient at the last draws against the float64
-   blocked engine.
+   blocked engine;
+17. segmented -- ``benchmarks/million_grad.py --seg-fisher``: the segmented
+   gradient (``ssm/segmented.py::make_segmented_nll_grad``, float32, K1/K2
+   forward and K4a/K4b backward per segment) at the start against the
+   float64 blocked engine at N = 1e6 (4 segments) and, with the fused
+   kernel path at the largest N that fits, against the float64 segmented
+   engine there; 20 Adam steps at N = 1e7 in segments of 1e6, whose nll/N
+   must fall and which must launch K1, K2, K4a and K4b; peak memory of the
+   fused and the segmented gradient; ``segmented_smooth_t`` at N = 2e6
+   against the fused ``pallas_smooth`` and float64; ``long_series.py``'s
+   segmented draws (N = 2e6, 4 draws) against ``blocked_posterior_sample``
+   on the same normals;
+18. mixed-bwd -- ``benchmarks/million_dtc.py --mixed-bwd=8`` at N = 1e6:
+   the DTC bound's gradient at M = 128 through chunks of 8 mixed columns
+   (``ops/grad.py::MixedWhitenGram``: K1/K2 once, K3 and K4a/K4b per chunk)
+   against the plain ``WhitenGram`` backward, with the peak memory of each
+   and of the plain backward at M = 256; 10 Adam steps at M = 256 with the
+   mixed backward.
 
 Phase 3 also runs the Monte-Carlo predictive ([mc]): the served chain's
 last conditional with ``predict_scaled(num_samples=100, generator=...)``
@@ -1954,6 +1971,43 @@ NUTS_F32_POINTS = 128
 NS_N, NS_CHAINS, NS_WARMUP, NS_SAMPLES, NS_DEPTH, NS_STAGES = 100_000, 2, 25, 30, 6, 25
 
 
+# [segmented]: benchmarks/million_grad.py --seg-fisher (its :44-51, :56-110),
+# not cut: N = 10^7 steps of million_grad's data from --seed (gaps of 0.5e-3
+# to 1.5e-3, a sine of lengthscale 0.9 and scale 0.8, noise 0.25), a
+# Matern-5/2 temporal GP from pack_gp(0.3, 1.0, 0.1), segments of 10^6,
+# 20 Adam steps at 5e-2 on -grad / N, make_segmented_nll_grad in float32 (the
+# times in float64: in float32 a time near 10^4 has a spacing of 1e-3, the
+# size of a gap).  Its gradient at the start is held to two references,
+# each component within [grad]'s bound at the reference's N (GRAD_RTOL |g|
+# + GRAD_ATOL + GRAD_ATOL_PER_STEP N, the float32 floor growing with N, 10x
+# at 10^7): the float64 blocked engine (tensor code, autograd through the
+# discretization) on the first 10^6 steps, there in 4 segments; and, with
+# the fused kernel path (logpdf_markov_pallas) at the largest N that fits,
+# both float32 paths against the float64 segmented engine (tensor code) at
+# that N.  Smoothing: segmented_smooth_t at N = 2 x 10^6 (2 segments) at the
+# trained point against the fused pallas_smooth, and both against float64:
+# means within SEG_SMOOTH_SD posterior sd, posterior sd within SEG_SMOOTH_SD
+# of itself.  Draws: long_series.py's segsample row (N = 2 x 10^6, segments
+# of 10^6, 4 draws; its data from --seed, Matern-5/2 (1, 1), noise 0.09):
+# segmented_posterior_sample against blocked_posterior_sample on one xi,
+# max |diff| / max |f| <= FFBS_SCAN_RTOL (both float32 on the kernels over
+# different blockings).
+SEG_N, SEG_SIZE, SEG_STEPS, SEG_LR = 10_000_000, 1_000_000, 20, 5e-2
+SEG_START = (0.3, 1.0, 0.1)
+SEG_REF_N, SEG_REF_SEGMENTS = 1_000_000, 4
+SEG_SMOOTH_N, SEG_SMOOTH_SD = 2_000_000, 1e-2
+SEG_SAMPLE_N, SEG_SAMPLE_S = 2_000_000, 4
+# [mixed-bwd]: benchmarks/million_dtc.py --mixed-bwd=8 (make_data :48-67,
+# Z every N/M-th input :96, start pack_gpar(0.5, 1, 1, 0.7, 0.2), Adam 5e-2
+# on -grad / N), N = 10^6, not cut: the DTC bound's gradient at M = 128
+# through chunks of 8 mixed columns against the plain WhitenGram backward,
+# each component within [grad]'s bound at N; then 10 Adam steps at M = 256
+# (the row that ran out of memory on the TPU) with the mixed backward.
+MIXED_N, MIXED_N_STAR, MIXED_CHUNK, MIXED_STEPS = 1_000_000, 10_000, 8, 10
+MIXED_M_CHECK, MIXED_M_TRAIN = 128, 256
+MIXED_START = (0.5, 1.0, 1.0, 0.7, 0.2)
+
+
 def million_smc_data(n):
     """benchmarks/million_smc.py's data: (t, y, latent f), numpy float64."""
     import numpy as np
@@ -2425,6 +2479,375 @@ def nuts_smc_phase(seed, failures):
     return {k: nuts_launches[k] + smc_launches[k] for k in nuts_launches}
 
 
+def million_grad_data(n, seed):
+    """benchmarks/million_grad.py's data, (t, y) numpy float64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.uniform(0.5, 1.5, n)) / 1000.0
+    return t, np.sin(t * (2.0 / 0.9)) * 0.8 + 0.25 * rng.normal(size=n)
+
+
+def _matern52_gp(p):
+    """``kernel_fn`` of million_grad.py: log-parameters -> (Matern-5/2,
+    noise variance)."""
+    from gpar_at_scale_torch.kernels import Matern52
+    from gpar_at_scale_torch.utils.params import unpack_gp
+
+    l, sf, sn = unpack_gp(p)
+    return Matern52(lengthscale=l, variance=sf**2), sn**2
+
+
+def _reset_peak():
+    import torch
+
+    if torch.device(_DEV).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak():
+    import torch
+
+    return _peak_gib() if torch.device(_DEV).type == "cuda" else float("nan")
+
+
+def _fused_grad(t, y, p):
+    """(ll, g) of the fused kernel path (``logpdf_markov_pallas``, autograd
+    through the discretization) at log-parameters p."""
+    import torch
+
+    from gpar_at_scale_torch.ops.grad import logpdf_markov_pallas
+
+    p = p.detach().clone().requires_grad_(True)
+    k, nv = _matern52_gp(p)
+    ll = logpdf_markov_pallas(k, t, nv, y)
+    (g,) = torch.autograd.grad(ll, p)
+    return float(ll.detach()), g.double().cpu().numpy()
+
+
+def _seg_grad(t, y, p, segment, dtype):
+    from gpar_at_scale_torch.ssm.segmented import make_segmented_nll_grad
+
+    ll, g = make_segmented_nll_grad(_matern52_gp, t, y, segment, dtype=dtype)(p.to(dtype))
+    return float(ll), g.double().cpu().numpy()
+
+
+def _grad_line(tag, name, got, want, n, failures):
+    ok_, gap = _grad_gap(got, want, n)
+    _log(f"[{tag}] {name}: {gap} {'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append(f"[{tag}] {name} disagrees")
+
+
+def segmented_grad_checks(t, y, p0, failures):
+    """The segmented float32 gradient at the start against the float64
+    blocked engine at SEG_REF_N (in SEG_REF_SEGMENTS segments), and with the
+    fused kernel path at the largest N of t that fits against the float64
+    segmented engine there.  Returns (that N, fused peak GiB, segmented peak
+    GiB at that N)."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.ssm.blocked_grad import blocked_loglik
+    from gpar_at_scale_torch.ssm.markov import lgssm_of
+
+    f32, f64 = torch.float32, torch.float64
+    n = SEG_REF_N
+    ll_s, g_s = _seg_grad(t[:n], y[:n], p0, n // SEG_REF_SEGMENTS, f32)
+    p = p0.double().detach().requires_grad_(True)
+    k, nv = _matern52_gp(p)
+    ll_r = blocked_loglik(lgssm_of(k, t[:n], nv, f64), y[:n].double())
+    (g_r,) = torch.autograd.grad(ll_r, p)
+    _log(f"[segmented] N={n:,}: ll/N segmented float32 ({SEG_REF_SEGMENTS} segments) "
+         f"{ll_s / n:.10f} vs float64 blocked engine {float(ll_r.detach()) / n:.10f}")
+    _grad_line("segmented", f"gradient at N={n:,}, segmented float32 vs float64 blocked engine",
+               g_s, g_r.cpu().numpy(), n, failures)
+
+    n = t.shape[0]
+    while True:
+        _reset_peak()
+        t0 = time.perf_counter()
+        try:
+            ll_f, g_f = _fused_grad(t[:n], y[:n], p0)
+            break
+        except torch.cuda.OutOfMemoryError:
+            _log(f"[segmented] the fused kernel path's gradient at N={n:,} ran out of memory")
+            n //= 2
+    fused_s, peak_f = time.perf_counter() - t0, _peak()
+    _reset_peak()
+    t0 = time.perf_counter()
+    ll_s, g_s = _seg_grad(t[:n], y[:n], p0, SEG_SIZE, f32)
+    seg_s, peak_s = time.perf_counter() - t0, _peak()
+    ll_r, g_r = _seg_grad(t[:n], y[:n], p0, SEG_SIZE, f64)
+    _log(f"[segmented] N={n:,} (the largest the fused path fit): ll/N fused float32 {ll_f / n:.10f}, "
+         f"segmented float32 {ll_s / n:.10f}, segmented float64 {ll_r / n:.10f}; the gradient "
+         f"fused {fused_s:.4f} s at {peak_f:.2f} GiB, segmented (segments of {SEG_SIZE:,}) "
+         f"{seg_s:.4f} s at {peak_s:.2f} GiB; gradient "
+         f"fused {np.round(g_f, 3).tolist()}, segmented {np.round(g_s, 3).tolist()}, float64 "
+         f"{np.round(g_r, 3).tolist()}")
+    _grad_line("segmented", f"gradient at N={n:,}, fused kernel path vs float64 segmented",
+               g_f, g_r, n, failures)
+    _grad_line("segmented", f"gradient at N={n:,}, segmented float32 vs float64 segmented",
+               g_s, g_r, n, failures)
+    return n, peak_f, peak_s
+
+
+def _smooth_check(t, y, p, failures):
+    """segmented_smooth_t (SEG_SIZE segments) against the fused pallas_smooth
+    and both against the float64 segmented smoother, in posterior sd."""
+    import torch
+
+    from gpar_at_scale_torch.ops.smoother import pallas_smooth
+    from gpar_at_scale_torch.ssm.markov import lgssm_of
+    from gpar_at_scale_torch.ssm.segmented import segmented_smooth_t
+
+    f32 = torch.float32
+    k, nv = _matern52_gp(p.double())
+    _sync(_DEV)
+    t0 = time.perf_counter()
+    seg = segmented_smooth_t(k, t, nv, y, SEG_SIZE, dtype=f32)
+    _sync(_DEV)
+    seg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f_mean, f_var, _ = pallas_smooth(lgssm_of(k, t, nv, f32), y)
+    _sync(_DEV)
+    fused_s = time.perf_counter() - t0
+    ref = segmented_smooth_t(k, t, nv, y.double(), SEG_SIZE)
+    sd = torch.sqrt(ref.var)
+    gaps = {}
+    for name, mean, var in (("segmented", seg.mean, seg.var), ("fused", f_mean, f_var)):
+        gaps[name] = (float(((mean.double() - ref.mean) / sd).abs().max()),
+                      float(((torch.sqrt(var.double()) - sd) / sd).abs().max()))
+    d_mean = float(((seg.mean.double() - f_mean.double()) / sd).abs().max())
+    ok_ = all(max(g) <= SEG_SMOOTH_SD for g in gaps.values()) and d_mean <= SEG_SMOOTH_SD
+    _log(f"[segmented] segmented_smooth_t N={t.shape[0]:,} in {t.shape[0] // SEG_SIZE} segments "
+         f"{seg_s:.3f} s, fused pallas_smooth {fused_s:.3f} s; max |mean - float64| / sd, max "
+         f"|sd - float64 sd| / sd: " + ", ".join(f"{k_} {a:.2e}, {b:.2e}" for k_, (a, b) in gaps.items())
+         + f"; segmented vs fused means {d_mean:.2e} sd (<= {SEG_SMOOTH_SD}) {'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[segmented] the segmented smoother disagrees")
+
+
+def _sample_check(seed, failures):
+    """long_series.py's segsample row: segmented_posterior_sample against
+    blocked_posterior_sample on one xi."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.kernels import Matern52
+    from gpar_at_scale_torch.ssm.blocked import blocked_posterior_sample
+    from gpar_at_scale_torch.ssm.markov import lgssm_of
+    from gpar_at_scale_torch.ssm.segmented import segmented_posterior_sample
+
+    f32, n = torch.float32, SEG_SAMPLE_N
+    rng = np.random.default_rng(seed)
+    t_np = np.cumsum(rng.uniform(0.5, 1.5, n)) / 1000.0
+    y_np = np.sin(t_np * 3) + 0.3 * rng.normal(size=n)
+    t, y = torch.as_tensor(t_np, device=_DEV), torch.as_tensor(y_np).to(_DEV, f32)
+    one = torch.tensor(1.0, dtype=torch.float64)
+    lg = lgssm_of(Matern52(lengthscale=one, variance=one), t, 0.09, f32)
+    gen = torch.Generator(device=_DEV).manual_seed(seed)
+    xi = torch.randn((n, 3, SEG_SAMPLE_S), generator=gen, dtype=f32, device=_DEV)
+    _reset_peak()
+    _sync(_DEV)
+    t0 = time.perf_counter()
+    f_seg = segmented_posterior_sample(gen, lg, y, SEG_SAMPLE_S, SEG_SIZE, xi=xi)
+    _sync(_DEV)
+    seg_s = time.perf_counter() - t0
+    peak = _peak()
+    f_blk = blocked_posterior_sample(gen, lg, y, SEG_SAMPLE_S, xi=xi)
+    rel = float((f_seg - f_blk).abs().max() / f_blk.abs().max())
+    ok_ = bool(torch.isfinite(f_seg).all()) and rel <= FFBS_SCAN_RTOL and f_seg.shape == (SEG_SAMPLE_S, n)
+    _log(f"[segmented] segmented_posterior_sample {SEG_SAMPLE_S} draws x {n:,} steps in "
+         f"{n // SEG_SIZE} segments: {seg_s:.3f} s ({SEG_SAMPLE_S * n / seg_s:.4e} sample-steps/s, "
+         f"the filter included), peak device memory {peak:.2f} GiB; vs blocked_posterior_sample on "
+         f"the same xi: {rel:.3e} of max |f| (<= {FFBS_SCAN_RTOL}) {'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[segmented] the segmented draws disagree with the blocked ones")
+
+
+def segmented_phase(seed, failures):
+    """[segmented] million_grad.py --seg-fisher on the card: the gradient
+    checks at the start (``segmented_grad_checks``), 20 Adam steps of
+    ``make_segmented_nll_grad`` (float32, K1/K2 forward and K4a/K4b backward
+    per segment) at N = 10^7, then the segmented smoother and draws.
+    Returns the launches of the training run."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.ssm.segmented import SEGMENT_SIZE, make_segmented_nll_grad
+    from gpar_at_scale_torch.utils.params import pack_gp
+
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    t_np, y_np = million_grad_data(SEG_N, seed)
+    t, y = torch.as_tensor(t_np, device=_DEV), torch.as_tensor(y_np).to(_DEV, f32)
+    p0 = pack_gp(*(torch.tensor(v, dtype=torch.float64) for v in SEG_START)).to(_DEV, f32)
+    _log(f"[segmented] N={SEG_N:,} million_grad data (seed {seed}) in {time.perf_counter() - t0:.1f} s")
+    n_fused, peak_fused, peak_seg_n = segmented_grad_checks(t, y, p0, failures)
+
+    _reset_peak()
+    make_segmented_nll_grad(_matern52_gp, t[:SEG_SIZE], y[:SEG_SIZE], SEG_SIZE, dtype=f32)(p0)
+    peak_one = _peak()
+    grad_fn = make_segmented_nll_grad(_matern52_gp, t, y, SEG_SIZE, dtype=f32)
+    p = p0.clone().requires_grad_(True)
+    opt = torch.optim.Adam([p], lr=SEG_LR)
+    trace = []
+    _reset_peak()
+    _zero_counts()
+    _sync(_DEV)
+    t0 = time.perf_counter()
+    for _ in range(SEG_STEPS):
+        ll, g = grad_fn(p.detach())
+        p.grad = -g / SEG_N
+        opt.step()
+        trace.append(-float(ll) / SEG_N)
+    launches = _all_counts()
+    train_s = _phase_end("segmented", t0, launches)
+    peak = _peak()
+    trace = np.asarray(trace)
+    fell = bool(np.isfinite(trace).all() and trace[-1] < trace[0])
+    launched = all(launches[k.name] > 0 for k in _scan_kernels() if not k.name.startswith("K3"))
+    _log(f"[segmented] training N={SEG_N:,} in {SEG_N // SEG_SIZE} segments of {SEG_SIZE:,}: "
+         f"{SEG_STEPS} Adam steps in {train_s:.3f} s ({train_s / SEG_STEPS:.4f} s/step, "
+         f"{SEG_N * SEG_STEPS / train_s:.4e} filter steps/s forward and backward); nll/N "
+         f"{[round(float(x), 6) for x in trace]} {'falls' if fell else 'does not fall: FAIL'}; "
+         f"end point (l, sf, sn) {np.round((np.exp(p.detach().double().cpu().numpy()) + 1e-3), 4).tolist()}; "
+         f"peak device memory {peak:.2f} GiB (one segment of {SEG_SIZE:,} alone {peak_one:.2f} GiB; "
+         f"the fused gradient at N={n_fused:,} {peak_fused:.2f} GiB, segmented there "
+         f"{peak_seg_n:.2f} GiB); K1/K2/K4a/K4b launched {launched}")
+    if not (fell and launched):
+        failures.append("[segmented] the training run's nll/N did not fall or a kernel did not launch")
+    profile_phase("segmented gradient, N=1e7 in 10 segments", lambda: grad_fn(p.detach()))
+    _reset_peak()
+    _sync(_DEV)
+    t0 = time.perf_counter()
+    make_segmented_nll_grad(_matern52_gp, t, y, dtype=f32)(p.detach())
+    _sync(_DEV)
+    _log(f"[segmented] one gradient at N={SEG_N:,} in segments of the default SEGMENT_SIZE "
+         f"{SEGMENT_SIZE:,}: {time.perf_counter() - t0:.4f} s, peak device memory {_peak():.2f} GiB")
+    _smooth_check(t[:SEG_SMOOTH_N], y[:SEG_SMOOTH_N], p.detach(), failures)
+    del t, y
+    _sample_check(seed, failures)
+    return launches
+
+
+def million_dtc_data(n, n_star, seed):
+    """benchmarks/million_dtc.py's make_data (training part): t, X (n, 2),
+    y, numpy float64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t_all = np.sort(rng.uniform(0.0, n / 1000.0, size=n + n_star))
+    train_idx = np.sort(rng.permutation(n + n_star)[n_star:])
+    t = t_all[train_idx]
+    X = np.stack([np.sin(0.7 * t) + 0.1 * np.cos(3.1 * t), np.cos(0.23 * t)], axis=1)
+    y = (0.8 * np.sin(2.2 * t) * np.cos(0.31 * t) + 0.6 * np.sin(1.3 * X[:, 0]) + 0.4 * X[:, 1]
+         + 0.25 * rng.normal(size=n))
+    return t, X, y
+
+
+def _dtc_value_grad(t, X, y, Z, p, mixed):
+    """million_dtc.py's P-form DTC bound at log-parameters p and its gradient,
+    through ``WhitenGram`` or, ``mixed`` a chunk width, ``MixedWhitenGram``.
+    The O(N) side float32, the bound's M x M algebra float64."""
+    import torch
+
+    from gpar_at_scale_torch.kernels import Matern52
+    from gpar_at_scale_torch.ops.grad import MixedWhitenGram, WhitenGram
+    from gpar_at_scale_torch.ssm.markov import lgssm_of
+    from gpar_at_scale_torch.utils.params import unpack_gpar
+
+    f32 = torch.float32
+    p = p.detach().clone().requires_grad_(True)
+    tl, ts, ol, os_, ns = unpack_gpar(p)
+    out_k = Matern52(lengthscale=ol, variance=os_**2)
+    lg = lgssm_of(Matern52(lengthscale=tl, variance=ts**2), t, ns**2, f32)
+    U = torch.cat([y[:, None], out_k(X, Z)], dim=1)
+    A, Q, R = lg.A, lg.Q, lg.R
+    G, logdet = (MixedWhitenGram.apply(A, Q, R, U, mixed) if mixed
+                 else WhitenGram.apply(A, Q, R, U))
+    m = Z.shape[0]
+    Kuu = (out_k(Z, Z) + ns**2 * torch.eye(m, dtype=f32, device=Z.device)).double()
+    aa, g, Gb = G[0, 0], G[1:, 0], G[1:, 1:]
+    L_uu, L_P = torch.linalg.cholesky(Kuu), torch.linalg.cholesky(Gb + Kuu)
+    wp = torch.linalg.solve_triangular(L_P, g[:, None], upper=False)[:, 0]
+    ld = lambda L: 2.0 * torch.log(torch.diagonal(L)).sum()  # noqa: E731
+    n = y.shape[0]
+    value = -0.5 * (n * 1.8378770664093453 + logdet + ld(L_P) - ld(L_uu) + aa - (wp * wp).sum())
+    (grad,) = torch.autograd.grad(value, p)
+    return float(value.detach()), grad
+
+
+def mixed_bwd_phase(seed, failures):
+    """[mixed-bwd] million_dtc.py --mixed-bwd=8 on the card: the bound's
+    gradient at M = 128 through the mixed-column backward against the plain
+    WhitenGram backward (peak memory of each), the plain backward's peak at
+    M = 256, then 10 Adam steps at M = 256 with the mixed backward.  Returns
+    the launches of the training run."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.utils.params import pack_gpar
+
+    f32 = torch.float32
+    t_np, X_np, y_np = million_dtc_data(MIXED_N, MIXED_N_STAR, seed)
+    t = torch.as_tensor(t_np, device=_DEV)
+    X, y = torch.as_tensor(X_np).to(_DEV, f32), torch.as_tensor(y_np).to(_DEV, f32)
+    p0 = pack_gpar(*(torch.tensor(v, dtype=torch.float64) for v in MIXED_START)).to(_DEV, f32)
+    peaks, secs = {}, {}
+    grads = {}
+    for m, mixed in ((MIXED_M_CHECK, 0), (MIXED_M_CHECK, MIXED_CHUNK), (MIXED_M_TRAIN, 0)):
+        Z = X[:: max(1, MIXED_N // m)][:m]
+        _reset_peak()
+        _sync(_DEV)
+        t0 = time.perf_counter()
+        value, g = _dtc_value_grad(t, X, y, Z, p0, mixed)
+        _sync(_DEV)
+        secs[m, mixed] = time.perf_counter() - t0
+        peaks[m, mixed] = _peak()
+        grads[m, mixed] = (value, g.double().cpu().numpy())
+    (v_p, g_p), (v_m, g_m) = grads[MIXED_M_CHECK, 0], grads[MIXED_M_CHECK, MIXED_CHUNK]
+    _log(f"[mixed-bwd] N={MIXED_N:,} M={MIXED_M_CHECK}: bound/N {v_p / MIXED_N:.10f}; gradient "
+         f"plain {np.round(g_p, 3).tolist()} in {secs[MIXED_M_CHECK, 0]:.3f} s at "
+         f"{peaks[MIXED_M_CHECK, 0]:.2f} GiB, mixed (chunks of {MIXED_CHUNK}) "
+         f"{np.round(g_m, 3).tolist()} in {secs[MIXED_M_CHECK, MIXED_CHUNK]:.3f} s at "
+         f"{peaks[MIXED_M_CHECK, MIXED_CHUNK]:.2f} GiB; plain at M={MIXED_M_TRAIN} "
+         f"{secs[MIXED_M_TRAIN, 0]:.3f} s at {peaks[MIXED_M_TRAIN, 0]:.2f} GiB")
+    _grad_line("mixed-bwd", f"gradient at M={MIXED_M_CHECK}, mixed vs plain backward", g_m, g_p,
+               MIXED_N, failures)
+
+    Z = X[:: max(1, MIXED_N // MIXED_M_TRAIN)][:MIXED_M_TRAIN]
+    p = p0.clone().requires_grad_(True)
+    opt = torch.optim.Adam([p], lr=5e-2)
+    trace = []
+    _reset_peak()
+    _zero_counts()
+    _sync(_DEV)
+    t0 = time.perf_counter()
+    for _ in range(MIXED_STEPS):
+        value, g = _dtc_value_grad(t, X, y, Z, p, MIXED_CHUNK)
+        p.grad = -g / MIXED_N
+        opt.step()
+        trace.append(-value / MIXED_N)
+    launches = _all_counts()
+    train_s = _phase_end("mixed-bwd", t0, launches)
+    peak = _peak()
+    trace = np.asarray(trace)
+    ok_ = bool(np.isfinite(trace).all() and trace[-1] < trace[0]) and all(
+        launches[k.name] > 0 for k in _scan_kernels())
+    _log(f"[mixed-bwd] training N={MIXED_N:,} M={MIXED_M_TRAIN}, chunks of {MIXED_CHUNK}: "
+         f"{MIXED_STEPS} Adam steps in {train_s:.3f} s ({train_s / MIXED_STEPS:.4f} s/step); nll/N "
+         f"{[round(float(x), 6) for x in trace]}; peak device memory {peak:.2f} GiB (the plain "
+         f"backward's gradient at M={MIXED_M_TRAIN} {peaks[MIXED_M_TRAIN, 0]:.2f} GiB) "
+         f"{'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[mixed-bwd] the M = 256 training run failed a check")
+    profile_phase("mixed-bwd gradient, M=256", lambda: _dtc_value_grad(t, X, y, Z, p, MIXED_CHUNK))
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2551,6 +2974,8 @@ def main(argv=None):
         ("smc", smc_phase(args.seed, failures)),
         ("nuts", nuts_phase(args.seed, eeg_smse_fz, failures)),
         ("nuts-smc", nuts_smc_phase(args.seed, failures)),
+        ("segmented", segmented_phase(args.seed, failures)),
+        ("mixed-bwd", mixed_bwd_phase(args.seed, failures)),
     )
     from gpar_at_scale_torch.ops import KERNELS
 

@@ -5,7 +5,12 @@ launch (``ops/build.py``).
 """
 
 from gpar_at_scale_torch.ops.dense import K6A, K6B, K6C, chol_solve, tri_u, tri_ut
-from gpar_at_scale_torch.ops.grad import LgssmLoglik, WhitenGram, logpdf_markov_pallas
+from gpar_at_scale_torch.ops.grad import (
+    LgssmLoglik,
+    MixedWhitenGram,
+    WhitenGram,
+    logpdf_markov_pallas,
+)
 from gpar_at_scale_torch.ops.kalman import K1, K2, decorrelate_blocked, pallas_supported
 from gpar_at_scale_torch.ops.smoother import K4A, K4B, pallas_smooth, suffix_scan
 from gpar_at_scale_torch.ops.whiten import K3, whiten_columns, whiten_gram
@@ -14,7 +19,7 @@ KERNELS = (K1, K2, K3, K4A, K4B, K6A, K6B, K6C)
 
 __all__ = [
     "K1", "K2", "K3", "K4A", "K4B", "K6A", "K6B", "K6C", "KERNELS",
-    "LgssmLoglik", "WhitenGram", "chol_solve", "decorrelate_blocked", "logpdf_markov_pallas",
+    "LgssmLoglik", "MixedWhitenGram", "WhitenGram", "chol_solve", "decorrelate_blocked", "logpdf_markov_pallas",
     "pallas_smooth", "pallas_supported", "suffix_scan", "tri_u", "tri_ut", "whiten_columns",
     "whiten_gram",
 ]

@@ -18,6 +18,12 @@ with the suffix scan on the card (``ops/smoother.py``, K4a/K4b):
   information matrix N; the contractions of the scores (r ctsym r^T,
   u ctsym, N A P) are plain batched products.  The JAX package runs this
   backward as three XLA associative scans.
+* ``MixedWhitenGram`` -- the same (G, logdet) with the mixed-column
+  backward of ``ssm/blocked_grad.py``: the y = 0 gain pass once (K1/K2),
+  then per chunk of K mixed columns U F_k one K3 sweep with means and one
+  K-column suffix scan (K4a/K4b), and one single-column scan for the ct_ld
+  terms.  Its backward holds K columns at a time where ``WhitenGram``'s
+  holds (N, d, M + 1) means and adjoints.
 
 Everything on the O(N) side is float32; cotangents that arrive in float64
 from the M x M algebra are cast to float32 first.  Both take state dim
@@ -32,8 +38,12 @@ import torch
 
 from gpar_at_scale_torch.ops.kalman import _e1, decorrelate_blocked, pallas_supported
 from gpar_at_scale_torch.ops.smoother import suffix_scan
-from gpar_at_scale_torch.ops.whiten import gram_forward
-from gpar_at_scale_torch.ssm.blocked_grad import whiten_bwd_elements, whiten_bwd_scores
+from gpar_at_scale_torch.ops.whiten import gain_rows, gram_forward, whiten_sweep
+from gpar_at_scale_torch.ssm.blocked_grad import (
+    cotangent_factor,
+    whiten_bwd_elements,
+    whiten_bwd_scores,
+)
 from gpar_at_scale_torch.ssm.markov import LGSSM, lgssm_of
 
 _F32 = torch.float32
@@ -76,12 +86,13 @@ def lgssm_loglik(A, Q, R, y):
 
 def logpdf_markov_pallas(kernel, t, noise_var, y):
     """Kernel hyperparameters -> discretization (autograd) -> kernel-path
-    log-likelihood (closed-form VJP), float32.  Dispatch, by the SDE's
-    shape alone (``pallas_supported``), as in the JAX package: sum-kernel
-    SDEs take the associative-scan engine
+    log-likelihood (closed-form VJP), float32; the gaps are taken in t's
+    precision (``lgssm_of``), which at N = 10^7 steps of 1e-3 needs a
+    float64 t.  Dispatch, by the SDE's shape alone (``pallas_supported``),
+    as in the JAX package: sum-kernel SDEs take the associative-scan engine
     (``ssm/pkalman.py::parallel_logpdf``, autograd) and launch nothing."""
     t = torch.as_tensor(t)
-    lg = lgssm_of(kernel, t.to(_F32), noise_var, _F32)
+    lg = lgssm_of(kernel, t, noise_var, _F32)
     y = torch.as_tensor(y, device=t.device)
     if not pallas_supported(lg):
         from gpar_at_scale_torch.ssm.pkalman import parallel_logpdf
@@ -105,3 +116,67 @@ class WhitenGram(torch.autograd.Function):
     def backward(ctx, ct_G, ct_ld):
         A, *aux = ctx.saved_tensors
         return _bwd(A, tuple(aux), ct_G, ct_ld)
+
+
+def gain_pass(A, Q, R):
+    """The y = 0 pass on K1/K2 that every column shares: (gain rows for K3,
+    S (N,), K (N, d), P (N, d, d))."""
+    n, d = A.shape[0], A.shape[-1]
+    lg = LGSSM(A=A, Q=Q, H=_e1(d, A), R=R, e1=True)
+    _, _, _, S, K, _, P = decorrelate_blocked(lg, A.new_zeros(n), return_full=True)
+    return gain_rows(A, S, K), S, K, P
+
+
+def whiten_bwd_mixed_chunk(A, U, Fk, gains):
+    """The kernel route of ``ssm.blocked_grad.whiten_bwd_mixed_chunk``:
+    (ct_A, ct_Q, ct_R, ct_U) of the mixed columns U F_k (Fk (B, K)) from
+    one K3 sweep with means on the shared ``gains`` (``gain_pass``) and one
+    K-column suffix scan with W = 0 on K4a/K4b.  float32, H = e1."""
+    rows, S, K, P = gains
+    Fk = Fk.to(_F32)
+    _, alpha, m = whiten_sweep(rows, (U @ Fk).contiguous(), A.shape[-1], want_means=True)
+    aux = (alpha * torch.sqrt(S)[:, None], S, K, m, P)
+    H = _e1(A.shape[-1], A)
+    C, b, W = whiten_bwd_elements(A, H, aux)
+    r, Nmat = suffix_scan(C, b, torch.zeros_like(W))
+    minus_eye = -torch.eye(Fk.shape[1], dtype=_F32, device=A.device)
+    ct_A, ct_Q, ct_R, ct_Ut = whiten_bwd_scores(A, H, aux, r, Nmat, minus_eye, 0.0)
+    return ct_A, ct_Q, ct_R, ct_Ut @ Fk.T
+
+
+def whiten_bwd_ld_part(A, ct_ld, gains):
+    """The kernel route of ``ssm.blocked_grad.whiten_bwd_ld_part``:
+    (ct_A, ct_Q, ct_R) of the ct_ld terms, one single-column suffix scan
+    with W on the shared ``gains``."""
+    _, S, K, P = gains
+    n, d = K.shape
+    aux = (A.new_zeros((n, 1)), S, K, A.new_zeros((n, d, 1)), P)
+    ct_A, ct_Q, ct_R, _ = _bwd(A, aux, A.new_zeros((1, 1)), ct_ld)
+    return ct_A, ct_Q, ct_R
+
+
+class MixedWhitenGram(torch.autograd.Function):
+    """``WhitenGram``'s (G, logdet) with the mixed-column backward over
+    chunks of ``chunk`` columns (the JAX package's ``--mixed-bwd``).  The
+    backward needs a negative semidefinite sym(ct_G), as the DTC bound
+    gives (``cotangent_factor``)."""
+
+    @staticmethod
+    def forward(ctx, A, Q, R, U, chunk):
+        G, logdet, _ = gram_forward(A, Q, R, U)
+        ctx.save_for_backward(A, Q, R, U)
+        ctx.chunk = int(chunk)
+        return G, logdet
+
+    @staticmethod
+    def backward(ctx, ct_G, ct_ld):
+        A, Q, R, U = ctx.saved_tensors
+        F = torch.as_tensor(cotangent_factor(ct_G), dtype=_F32, device=A.device)
+        gains = gain_pass(A, Q, R)
+        ct_A, ct_Q, ct_R = whiten_bwd_ld_part(A, ct_ld, gains)
+        ct_U = torch.zeros_like(U)
+        for j in range(0, F.shape[1], ctx.chunk):
+            parts = whiten_bwd_mixed_chunk(A, U, F[:, j:j + ctx.chunk], gains)
+            for acc, part in zip((ct_A, ct_Q, ct_R, ct_U), parts):
+                acc += part
+        return ct_A, ct_Q, ct_R, ct_U, None

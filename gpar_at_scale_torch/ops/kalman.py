@@ -11,6 +11,8 @@ whitened in three phases:
           block's one-step elements without the combine's inverses;
   phase 2 (tensor code) -- exclusive associative prefix over the block
           elements, which gives every block its filtered init (m0, P0);
+          the filtered state before the series (a segment carry,
+          ``ssm/segmented.py``) joins here, in front of every block;
   phase 3 (K2, ``csrc/kalman_scan.cu::phase3_kernel``) -- replay each block
           from (m0, P0) with the plain Kalman recursion (Joseph form) and
           emit alpha = v / sqrt(S), log S, K, m, P per step and ll,
@@ -170,10 +172,14 @@ def phase3(A, Q, R, y, m0, P0, nb: int, T: int, want_gains=True, want_moments=Tr
 # ---------------------------------------------------------------------------
 
 
-def block_inits(eA, eb, eC, eeta, eJ):
+def block_inits(eA, eb, eC, eeta, eJ, init=None):
     """Phase 2: the filtered (m0 (nb, d), P0 (nb, d, d)) entering each block,
-    from the block elements (``ssm.blocked.block_inits``)."""
-    m0, P0 = blocked.block_inits((eA, eb[:, :, None], eC, eeta[:, :, None], eJ))
+    from the block elements (``ssm.blocked.block_inits``); ``init`` =
+    (m (d,), P (d, d)), the filtered state before the series, joins every
+    block's prefix in front (a segment carry)."""
+    if init is not None:
+        init = (torch.as_tensor(init[0]).reshape(-1, 1), init[1])
+    m0, P0 = blocked.block_inits((eA, eb[:, :, None], eC, eeta[:, :, None], eJ), init)
     return m0[:, :, 0].contiguous(), P0.contiguous()
 
 
@@ -218,6 +224,7 @@ def decorrelate_blocked(
     return_gains: bool = False,
     return_moments: bool = False,
     return_full: bool = False,
+    init=None,
 ):
     """Whitening pass of one observation column through K1 and K2.
 
@@ -226,13 +233,19 @@ def decorrelate_blocked(
     whitening kernel consumes (``ops/whiten.py``); ``return_moments`` adds
     the filtered moments m (N, d), P (N, d, d); ``return_full`` returns
     (ll, alpha, logdet, S, K, m, P).  The scalars are summed per block in
-    float32 and across blocks in float64.
+    float32 and across blocks in float64.  ``init`` = (m (d,), P (d, d)):
+    the filtered state of the step before the series (a segment carry of
+    ``ssm/segmented.py``), which enters phase 2 in front of every block;
+    the LGSSM's step 0 is then a real transition from it.
 
     Dispatch, by the SDE's shape alone: state dim <= 3 with H = e1 runs K1
     and K2 (tensors on the card launch them, tensors on the CPU take the
     plain versions); any other SDE runs the associative-scan filter in
     float32 (``_decorrelate_fallback``) and launches nothing."""
     if not pallas_supported(lgssm):
+        if init is not None:
+            raise ValueError("decorrelate_blocked: init= is for the kernels' SDEs "
+                             "(ssm/segmented.py sends the others to the tensor code)")
         return _decorrelate_fallback(lgssm, y, return_gains, return_moments, return_full)
     A, Q, R, y = _f32_inputs(lgssm, y)
     n = A.shape[0]
@@ -240,7 +253,7 @@ def decorrelate_blocked(
     T = -(-n // nb)
     want_gains = return_gains or return_full
     want_moments = return_moments or return_full
-    m0, P0 = block_inits(*phase1(A, Q, R, y, nb, T))
+    m0, P0 = block_inits(*phase1(A, Q, R, y, nb, T), init=init)
     alpha, logs, K, m, P, ll_b, ls_b = phase3(
         A, Q, R, y, m0, P0, nb, T, want_gains, want_moments
     )

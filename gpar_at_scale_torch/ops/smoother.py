@@ -12,7 +12,8 @@ in the three phases of the JAX package's ``pallas_suffix_scan``:
      block folds its elements, last step first, into one suffix element;
   R2 (tensor code) -- a reverse exclusive prefix over the block elements
      (``ssm.blocked._scan`` of ``_combine_smooth``), which gives every block
-     the (g0, L0) of all later blocks;
+     the (g0, L0) of all later blocks; a terminal element after the last
+     step (a later segment's carry, ``ssm/segmented.py``) joins here;
   R3 (K4b, ``csrc/suffix_scan.cu::suffix_replay_kernel``) -- each block
      replays its steps backwards from (g0, L0) and writes (v, M) at every
      step.
@@ -49,6 +50,7 @@ from gpar_at_scale_torch.ssm.blocked import (
     num_blocks_for,
     sample_from_moments,
     smoothing_elements,
+    with_terminal,
 )
 from gpar_at_scale_torch.ssm.markov import LGSSM
 from gpar_at_scale_torch.ssm.pkalman import _combine_smooth, _scan
@@ -149,18 +151,21 @@ def suffix_replay(E, g, L, g0, L0, nb: int, T: int):
     return v, M
 
 
-def block_suffix_inits(bE, bg, bL):
+def block_suffix_inits(bE, bg, bL, terminal=None):
     """Phase R2: the exclusive suffix (g0, L0) entering each block from the
-    blocks after it; the last block starts from (0, 0)."""
-    _, g_inc, L_inc = _scan(_combine_smooth, (bE, bg, bL), reverse=True)
-    g0 = torch.cat([g_inc[1:], torch.zeros_like(bg[:1])])
-    L0 = torch.cat([L_inc[1:], torch.zeros_like(bL[:1])])
+    blocks after it; the last block starts from (0, 0), or from
+    ``terminal`` = (g_t (d, C), L_t (d, d)), the element after the last step
+    (a segment carry, ``ssm.blocked.with_terminal``)."""
+    inc = _scan(_combine_smooth, (bE, bg, bL), reverse=True)
+    ident = _smooth_identity(1, bE.shape[-1], bg.shape[-1], bE.dtype, bE.device)
+    _, g0, L0 = with_terminal(tuple(torch.cat([x[1:], i]) for x, i in zip(inc, ident)), terminal)
     return g0.contiguous(), L0.contiguous()
 
 
-def suffix_scan(E, g, L):
+def suffix_scan(E, g, L, terminal=None):
     """(v, M) of the suffix recursions v_k = g_k + E_k v_{k+1},
-    M_k = L_k + E_k M_{k+1} E_k^T from v_n = M_n = 0.
+    M_k = L_k + E_k M_{k+1} E_k^T from v_n = M_n = 0, or from
+    ``terminal`` = (v_n (d, C), M_n (d, d)), the state after the last step.
 
     float32, d <= 3.  E, L (n, d, d); g (n, d) or (n, d, C), and v comes
     back in g's shape; M is (n, d, d).  Tensors on the card launch K4a and
@@ -172,7 +177,7 @@ def suffix_scan(E, g, L):
     n = E.shape[0]
     nb = num_blocks_for(n)
     T = -(-n // nb)
-    g0, L0 = block_suffix_inits(*suffix_reduce(E, g, L, nb, T))
+    g0, L0 = block_suffix_inits(*suffix_reduce(E, g, L, nb, T), terminal)
     v, M = suffix_replay(E, g, L, g0, L0, nb, T)
     return (v[:, :, 0] if single else v), M
 
@@ -182,20 +187,39 @@ def suffix_scan(E, g, L):
 # ---------------------------------------------------------------------------
 
 
-def pallas_smooth(lgssm: LGSSM, y, return_state: bool = False):
+def smooth_moments(lgssm: LGSSM, m, P, boundary=None):
+    """The smoothed state moments ms (N, d), Ps (N, d, d) and the smoother
+    gains E (N, d, d) from the filtered moments m (N, d), P (N, d, d):
+    float32 smoothing elements (``ssm.blocked.smoothing_elements``), then
+    K4a/K4b.  ``boundary`` = (A1, mp1, Pp1, ms1, Ps1), the transition,
+    predicted and smoothed moments of the step after the series (a later
+    segment's first step), continues the recursion into it."""
+    next_step, terminal = (None, None) if boundary is None else (boundary[:3], boundary[3:])
+    E, g, L = smoothing_elements(lgssm, m, P, next_step=next_step)
+    if terminal is not None:
+        terminal = (terminal[0].reshape(-1, 1), terminal[1])
+    ms, Ps = suffix_scan(E, g, L, terminal)
+    return ms, Ps, E
+
+
+def pallas_smooth(lgssm: LGSSM, y, return_state: bool = False, boundary=None):
     """Blocked-scan RTS smoother of one float32 series: (f_mean (N,),
     f_var (N,), ll); with ``return_state`` also the smoothed state moments
     ms (N, d), Ps (N, d, d) and the smoother gains E (N, d, d) (E[k] maps
     step k+1's smoothed moments back to step k).
 
     The forward filter with moments runs on K1/K2, the backward pass on
-    K4a/K4b over the smoothing elements (``ssm.blocked.smoothing_elements``).
+    K4a/K4b over the smoothing elements (``smooth_moments``); ``boundary``
+    carries the step after the series (a later segment's first step).
 
     Dispatch, by the SDE's shape alone (``pallas_supported``): sum-kernel
     SDEs (state dim > 3 or H != e1) run the associative-scan smoother
     (``ssm/pkalman.py::parallel_smooth``) in float32 and launch nothing; as
-    in the JAX package, their gains E come back as zeros."""
+    in the JAX package, their gains E come back as zeros.  They take no
+    boundary (``ssm/segmented.py`` runs them on the tensor code)."""
     if not pallas_supported(lgssm):
+        if boundary is not None:
+            raise ValueError("pallas_smooth: segment carries are for the kernels' SDEs")
         from gpar_at_scale_torch.ssm.pkalman import parallel_smooth
 
         lg = _as_f32(lgssm)
@@ -204,8 +228,7 @@ def pallas_smooth(lgssm: LGSSM, y, return_state: bool = False):
             return sm.mean, sm.var, sm.ll[0]
         return sm.mean, sm.var, sm.ll[0], sm.ms[:, :, 0], sm.Ps, torch.zeros_like(sm.Ps)
     ll, _, _, m, P = decorrelate_blocked(lgssm, y, return_moments=True)
-    E, g, L = smoothing_elements(lgssm, m, P)
-    ms, Ps = suffix_scan(E, g, L)
+    ms, Ps, E = smooth_moments(lgssm, m, P, boundary)
     f_mean = ms[:, 0]
     f_var = torch.clamp(Ps[:, 0, 0], min=0.0)
     if not return_state:
@@ -218,19 +241,31 @@ def pallas_smooth(lgssm: LGSSM, y, return_state: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def pallas_posterior_sample(generator: torch.Generator, lgssm: LGSSM, y, num_samples: int = 1,
-                            xi=None):
-    """Joint posterior draws of f given one float32 series, (num_samples, N):
-    the filter with moments on K1/K2, then the sampling pass, the affine
+def draw_states(lgssm: LGSSM, m, P, xi, next_step=None, x_term=None):
+    """Joint draws of the state x (N, d, S) from the filtered moments
+    m (N, d), P (N, d, d) and standard normals xi (N, d, S): the affine
     suffix x_k = g_s_k + E_k x_{k+1} over ``ssm.blocked.ffbs_elements``
-    (float64, cast to float32) on K4a/K4b with C = S (the kernels also
-    replay the congruence M, which the draws do not need: (N, d, d) more to
-    write).  ``xi`` (N, d, num_samples) replaces the standard normals drawn
-    from ``generator``.
+    (float64, cast to float32) on K4a/K4b with C = S.  ``next_step``
+    (A1, mp1, Pp1) and ``x_term`` (d, S), the step after the series and its
+    draw, carry a later segment's first step."""
+    E, g_s, L = ffbs_elements(lgssm, m, P, xi, torch.float32, next_step)
+    terminal = None if x_term is None else (x_term, torch.zeros_like(L[0]))
+    return suffix_scan(E, g_s, L, terminal)[0]
+
+
+def pallas_posterior_sample(generator: torch.Generator, lgssm: LGSSM, y, num_samples: int = 1,
+                            xi=None, next_step=None, x_term=None):
+    """Joint posterior draws of f given one float32 series, (num_samples, N):
+    the filter with moments on K1/K2, then the sampling pass on K4a/K4b
+    (``draw_states``; the kernels also replay the congruence M, which the
+    draws do not need: (N, d, d) more to write).  ``xi`` (N, d, num_samples)
+    replaces the standard normals drawn from ``generator``; ``next_step``
+    and ``x_term`` carry the step after the series (``draw_states``).
 
     Dispatch, by the SDE's shape alone (``pallas_supported``): sum-kernel
     SDEs take the associative-scan filter and the tensor-code affine scan
-    (``ssm.blocked.sample_from_moments``) and launch nothing."""
+    (``ssm.blocked.sample_from_moments``), launch nothing and take no
+    carries."""
     lg = _as_f32(lgssm)
     n, d = lg.num_steps, lg.dim
     dev = lg.A.device
@@ -240,10 +275,11 @@ def pallas_posterior_sample(generator: torch.Generator, lgssm: LGSSM, y, num_sam
     xi = torch.as_tensor(xi).to(device=dev, dtype=torch.float32)
     y = torch.as_tensor(y, device=dev).to(torch.float32)
     if not pallas_supported(lgssm):
+        if next_step is not None or x_term is not None:
+            raise ValueError("pallas_posterior_sample: segment carries are for the kernels' SDEs")
         from gpar_at_scale_torch.ssm.pkalman import parallel_filter
 
         res = parallel_filter(lg, y)
-        return sample_from_moments(lg, res.m[:, :, 0], res.P, xi)
+        return torch.einsum("d,nds->sn", lg.H, sample_from_moments(lg, res.m[:, :, 0], res.P, xi))
     _, _, _, m, P = decorrelate_blocked(lgssm, y, return_moments=True)
-    x, _ = suffix_scan(*ffbs_elements(lgssm, m, P, xi, torch.float32))
-    return x[:, 0, :].T
+    return draw_states(lgssm, m, P, xi, next_step, x_term)[:, 0, :].T

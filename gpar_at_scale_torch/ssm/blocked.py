@@ -16,6 +16,12 @@ short, few enough that the prefix over block totals (log2 B levels) stays
 cheap.  The CUDA scan kernels (``ops/kalman.py``) use the same block count,
 and the three phases of ``blocked_filter`` (``block_totals``,
 ``block_inits``, ``replay_blocks``) are their plain versions.
+
+A segment of a longer series (``ssm/segmented.py``) takes carries across
+its seams: the filtered state before it enters phase 2
+(``blocked_filter(init=)``), and the step after it ends the reverse scans
+(``blocked_suffix_scan(terminal=)``, ``blocked_smooth(boundary=)``,
+``next_step`` and ``x_term`` of the FFBS elements and draws).
 """
 
 from __future__ import annotations
@@ -96,15 +102,28 @@ def block_totals(lgssm: LGSSM, Y, B, T):
     return totals
 
 
-def block_inits(totals):
+def block_inits(totals, init=None):
     """Phase 2: exclusive prefix over the block totals -> the filtered
     (m0 (B, d, C), P0 (B, d, d)) entering each block.  Block 0 starts from
     the identity element (m0 = 0, P0 = 0): the prior enters through step 0's
-    A_0 = 0, Q_0 = Pinf."""
+    A_0 = 0, Q_0 = Pinf.
+
+    ``init`` = (m (d, C), P (d, d)), the filtered state of the step before
+    the series (the segment carry of ``ssm/segmented.py``), enters as the
+    element (0, m, P, 0, 0) in front of every block's prefix, block 0's
+    too: the whole series then conditions on it."""
+    B, d, C = totals[1].shape
     scanned = _scan(_combine_fast, totals)
-    m0 = torch.cat([torch.zeros_like(totals[1][:1]), scanned[1][:-1]])
-    P0 = torch.cat([torch.zeros_like(totals[2][:1]), scanned[2][:-1]])
-    return m0, P0
+    first = _elem_identity(1, d, C, totals[1].dtype, totals[1].device)
+    prefix = tuple(torch.cat([i, s[:-1]]) for i, s in zip(first, scanned))
+    if init is not None:
+        m_c, P_c = (torch.as_tensor(x, dtype=totals[1].dtype, device=totals[1].device)
+                    for x in init)
+        zeros = torch.zeros_like(prefix[0])
+        carry = (zeros, m_c.reshape(1, d, C).expand(B, d, C), P_c.reshape(1, d, d).expand(B, d, d),
+                 torch.zeros_like(prefix[3]), zeros)
+        prefix = _combine_fast(carry, prefix)  # the carry is earlier than every block
+    return prefix[1], prefix[2]
 
 
 def replay_blocks(lgssm: LGSSM, Y, m0, P0, B, T):
@@ -148,14 +167,18 @@ def replay_blocks(lgssm: LGSSM, Y, m0, P0, B, T):
     return outs, live
 
 
-def blocked_filter(lgssm: LGSSM, y, num_blocks=None) -> FilterResult:
+def blocked_filter(lgssm: LGSSM, y, num_blocks=None, init=None) -> FilterResult:
     """Forward filter with batched observation columns: ``FilterResult``
-    parity with ``kalman_filter`` at ceil(N / B) sequential depth."""
+    parity with ``kalman_filter`` at ceil(N / B) sequential depth.
+
+    ``init``: the filtered (m (d, C), P (d, d)) of the step before the
+    series (a segment carry, ``block_inits``); the LGSSM's step 0 is then a
+    real transition from it.  None: the prior, through A_0 = 0, Q_0 = Pinf."""
     Y, _ = _ensure_batch(y)
     n = lgssm.num_steps
     B = num_blocks_for(n, num_blocks)
     T = -(-n // B)
-    m0, P0 = block_inits(block_totals(lgssm, Y, B, T))
+    m0, P0 = block_inits(block_totals(lgssm, Y, B, T), init)
     outs, _ = replay_blocks(lgssm, Y, m0, P0, B, T)
     o = {k: _unblock(v, n) for k, v in outs.items()}
     ll = -0.5 * (_LOG_2PI + torch.log(o["S"])[:, None] + o["v"] ** 2 / o["S"][:, None]).sum(0)
@@ -184,12 +207,29 @@ def _smooth_identity(B, d, C, dtype, device):
     return (eye, zeros(B, d, C), zeros(B, d, d))
 
 
-def blocked_suffix_scan(E, g, L, num_blocks=None):
+def with_terminal(later, terminal):
+    """The suffix elements ``later`` (E (B, d, d), g (B, d, C), L (B, d, d))
+    followed by the terminal element (0, g_t, L_t) after the last step,
+    ``terminal`` = (g_t (d, C), L_t (d, d)): the recursions then continue
+    into a later segment whose scanned state at its first step is
+    (g_t, L_t).  None leaves ``later`` as it is."""
+    if terminal is None:
+        return later
+    E, g, L = later
+    g_t, L_t = (torch.as_tensor(x, dtype=E.dtype, device=E.device) for x in terminal)
+    last = (torch.zeros_like(E), g_t.reshape((1,) + g.shape[1:]).expand(g.shape),
+            L_t.reshape((1,) + L.shape[1:]).expand(L.shape))
+    return _combine_smooth(last, later)  # later o terminal
+
+
+def blocked_suffix_scan(E, g, L, num_blocks=None, terminal=None):
     """Inclusive suffix combine out_k = elem_k o elem_{k+1} o ... o elem_{n-1}
     of smoothing-algebra elements, blocked: within-block reverse reduction
     (ceil(N / B) sequential depth), reverse exclusive prefix over block
     totals, then one elementwise combine.  E (n, d, d), g (n, d, C),
-    L (n, d, d)."""
+    L (n, d, d).  ``terminal``: an optional (g_t (d, C), L_t (d, d))
+    after the last step (``with_terminal``), the segment carry of
+    ``ssm/segmented.py``."""
     n, d, C = E.shape[0], E.shape[-1], g.shape[-1]
     dtype, dev = E.dtype, E.device
     B = num_blocks_for(n, num_blocks)
@@ -206,20 +246,27 @@ def blocked_suffix_scan(E, g, L, num_blocks=None):
             s[t] = c
 
     scanned = _scan(_combine_smooth, carry, reverse=True)
-    later = tuple(torch.cat([s[1:], i]) for s, i in zip(scanned, ident))
+    later = with_terminal(tuple(torch.cat([s[1:], i]) for s, i in zip(scanned, ident)), terminal)
     out = _combine_smooth(later, suffix)  # later (B, ...) broadcasts over T
     return tuple(_unblock(x, n) for x in out)
 
 
 def blocked_smooth(
-    lgssm: LGSSM, y, filter_result: FilterResult = None, num_blocks=None
+    lgssm: LGSSM, y, filter_result: FilterResult = None, num_blocks=None, boundary=None
 ) -> SmoothResult:
     """RTS smoother as a blocked reverse scan: ``SmoothResult`` parity with
     ``rts_smooth``.  The smoothed moments are the combined suffix elements,
-    so no replay pass is needed."""
+    so no replay pass is needed.
+
+    ``boundary``: (A1, mp1, Pp1, ms1, Ps1), the transition, predicted and
+    smoothed moments of the step after the series (a later segment's first
+    step, ``ssm/segmented.py``): the backward recursion then continues
+    into that segment."""
     Y, single = _ensure_batch(y)
     res = filter_result if filter_result is not None else blocked_filter(lgssm, Y, num_blocks)
-    _, ms, Ps = blocked_suffix_scan(*_smoother_elements(lgssm, res), num_blocks=num_blocks)
+    next_step, terminal = (None, None) if boundary is None else (boundary[:3], boundary[3:])
+    _, ms, Ps = blocked_suffix_scan(*_smoother_elements(lgssm, res, next_step),
+                                    num_blocks=num_blocks, terminal=terminal)
     H = lgssm.H.to(lgssm.A.dtype)
     f_mean = torch.einsum("d,ndb->nb", H, ms)
     f_var = torch.einsum("d,nde,e->n", H, Ps, H)
@@ -328,7 +375,7 @@ def blocked_affine_suffix_scan(E, g, num_blocks=None, terminal=None):
     return tuple(_unblock(x, n) for x in out)
 
 
-def smoothing_elements(lgssm: LGSSM, m, P, dtype=torch.float32):
+def smoothing_elements(lgssm: LGSSM, m, P, dtype=torch.float32, next_step=None):
     """The smoothing elements, in ``dtype``, from the filtered moments
     m (N, d), P (N, d, d):
 
@@ -337,25 +384,31 @@ def smoothing_elements(lgssm: LGSSM, m, P, dtype=torch.float32):
 
     with the predicted moments formed again from (A, Q).  At the last step
     A_{k+1} = 0 and Pp_{k+1} = I stand in for the missing next step, which
-    gives the terminal element (0, m_N, P_N).  Returns E (N, d, d),
-    g (N, d), L (N, d, d)."""
+    gives the terminal element (0, m_N, P_N); ``next_step`` = (A1 (d, d),
+    mp1 (d,), Pp1 (d, d)), the step after the series (a later segment's
+    first step), makes the last element a regular one toward it.  Returns
+    E (N, d, d), g (N, d), L (N, d, d)."""
     A, Q, m, P = (x.to(dtype) for x in (lgssm.A, lgssm.Q, m, P))
     d = A.shape[-1]
-    A_next = torch.cat([A[1:], A.new_zeros((1, d, d))])
+    A1 = A.new_zeros((d, d)) if next_step is None else next_step[0].to(dtype)
+    A_next = torch.cat([A[1:], A1[None]])
     Q_next = torch.cat([Q[1:], torch.eye(d, dtype=dtype, device=A.device)[None]])
     mp_next = (A_next @ m[:, :, None])[:, :, 0]
     Pp_next = A_next @ P @ A_next.transpose(-1, -2) + Q_next
+    if next_step is not None:
+        mp_next = torch.cat([mp_next[:-1], next_step[1].to(dtype).reshape(1, d)])
+        Pp_next = torch.cat([Pp_next[:-1], next_step[2].to(dtype)[None]])
     E = P @ A_next.transpose(-1, -2) @ _inv_small(Pp_next)
     g = m - (E @ mp_next[:, :, None])[:, :, 0]
     L = P - E @ Pp_next @ E.transpose(-1, -2)
     return E, g, L
 
 
-def ffbs_elements(lgssm: LGSSM, m, P, xi, dtype):
+def ffbs_elements(lgssm: LGSSM, m, P, xi, dtype, next_step=None):
     """The inputs (E, g_s, L) of FFBS's sampling scan, in ``dtype``, from the
     filtered moments m (N, d), P (N, d, d) and standard normals xi
-    (N, d, S): the smoothing elements and g_s = g + chol(L) xi
-    (``_chol_floor``), formed in float64 and then cast.
+    (N, d, S): the smoothing elements (``next_step`` as there) and
+    g_s = g + chol(L) xi (``_chol_floor``), formed in float64 and then cast.
 
     At small time gaps L_k = P_k - E_k Pp_{k+1} E_k^T is many orders of
     magnitude below P_k (1e-11 of it at gaps of 1e-3 lengthscales for
@@ -366,7 +419,7 @@ def ffbs_elements(lgssm: LGSSM, m, P, xi, dtype):
     noise well above its own rounding.  The JAX package forms them in the
     working precision."""
     f64 = torch.float64
-    E, g, L = smoothing_elements(lgssm, m, P, f64)
+    E, g, L = smoothing_elements(lgssm, m, P, f64, next_step)
     g_s = g[:, :, None] + _chol_floor(L) @ xi.to(device=E.device, dtype=f64)
     return tuple(x.to(dtype).contiguous() for x in (E, g_s, L))
 
@@ -384,14 +437,15 @@ def ffbs_draw(E, g, L, xi, num_blocks=None, x_term=None):
     return x
 
 
-def sample_from_moments(lgssm: LGSSM, m, P, xi, num_blocks=None):
-    """Joint draws of f = H x, (S, N), from the filtered moments m (N, d),
-    P (N, d, d) and standard normals xi (N, d, S): ``ffbs_elements`` cast to
-    the LGSSM's dtype, then the tensor-code affine suffix scan."""
-    dtype = lgssm.A.dtype
-    E, g_s, _ = ffbs_elements(lgssm, m, P, xi, dtype)
-    _, x = blocked_affine_suffix_scan(E, g_s, num_blocks)
-    return torch.einsum("d,nds->sn", lgssm.H.to(dtype), x)
+def sample_from_moments(lgssm: LGSSM, m, P, xi, num_blocks=None, next_step=None, x_term=None):
+    """Joint draws of the state x (N, d, S) from the filtered moments
+    m (N, d), P (N, d, d) and standard normals xi (N, d, S):
+    ``ffbs_elements`` cast to the LGSSM's dtype, then the tensor-code affine
+    suffix scan.  ``next_step`` (as in ``smoothing_elements``) and
+    ``x_term``, the (d, S) draw of the step after the series, carry a later
+    segment's first step (``ssm/segmented.py``)."""
+    E, g_s, _ = ffbs_elements(lgssm, m, P, xi, lgssm.A.dtype, next_step)
+    return blocked_affine_suffix_scan(E, g_s, num_blocks, terminal=x_term)[1]
 
 
 def blocked_posterior_sample(
@@ -431,4 +485,5 @@ def blocked_posterior_sample(
         xi = torch.randn((n, d, num_samples), generator=generator, dtype=dtype,
                          device=generator.device)
     xi = torch.as_tensor(xi).to(device=dev, dtype=dtype)
-    return sample_from_moments(lgssm, res.m[:, :, 0], res.P, xi, num_blocks)
+    x = sample_from_moments(lgssm, res.m[:, :, 0], res.P, xi, num_blocks)
+    return torch.einsum("d,nds->sn", lgssm.H.to(dtype), x)

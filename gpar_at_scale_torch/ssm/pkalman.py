@@ -165,13 +165,25 @@ def parallel_decorrelate(lgssm: LGSSM, y):
     return res.ll, alpha
 
 
-def _smoother_elements(lgssm: LGSSM, res: FilterResult):
+def _smoother_elements(lgssm: LGSSM, res: FilterResult, next_step=None):
     """Per-step smoothing elements from the filtered moments, with the
     adjugate inverse: E_k = P_k A_{k+1}^T Pp_{k+1}^-1,
     g_k = m_k - E_k mp_{k+1}, L_k = P_k - E_k Pp_{k+1} E_k^T; the last
-    element is (0, m_N, P_N)."""
+    element is (0, m_N, P_N).
+
+    ``next_step``: the transition A1 (d, d) and predicted moments
+    mp1 (d, B), Pp1 (d, d) of the step after the series (a later segment's
+    first step, ``ssm/segmented.py``); the last element is then a regular
+    element toward that step."""
     A, m, P, mp, Pp = lgssm.A, res.m, res.P, res.mp, res.Pp
     d = A.shape[-1]
+    if next_step is not None:
+        A1, mp1, Pp1 = (torch.as_tensor(x, dtype=A.dtype, device=A.device) for x in next_step)
+        A_next = torch.cat([A[1:], A1.reshape(1, d, d)])
+        mp_next = torch.cat([mp[1:], mp1.reshape((1,) + mp.shape[1:])])
+        Pp_next = torch.cat([Pp[1:], Pp1.reshape(1, d, d)])
+        E = P @ A_next.transpose(-1, -2) @ _inv_small(Pp_next)
+        return E, m - E @ mp_next, P - E @ Pp_next @ E.transpose(-1, -2)
     E = P[:-1] @ A[1:].transpose(-1, -2) @ _inv_small(Pp[1:])
     g = m[:-1] - E @ mp[1:]
     L = P[:-1] - E @ Pp[1:] @ E.transpose(-1, -2)

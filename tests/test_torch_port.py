@@ -47,6 +47,7 @@ from gpar_at_scale_tpu.ops.pallas_whiten import pallas_whiten_columns
 from gpar_at_scale_tpu.ssm import blocked as jblocked
 from gpar_at_scale_tpu.ssm import kalman as jkalman
 from gpar_at_scale_tpu.ssm import markov as jmarkov
+from gpar_at_scale_tpu.ssm import segmented as jseg
 from gpar_at_scale_tpu.utils import params as jparams
 from gpar_at_scale_tpu.utils import psd as jpsd
 from gpar_at_scale_torch import device as tdevice
@@ -58,6 +59,7 @@ from gpar_at_scale_torch.ssm import blocked as tblocked
 from gpar_at_scale_torch.ssm import blocked_grad as tblocked_grad
 from gpar_at_scale_torch.ssm import kalman as tkalman
 from gpar_at_scale_torch.ssm import markov as tmarkov
+from gpar_at_scale_torch.ssm import segmented as tseg
 from gpar_at_scale_torch.utils import convert, params as tparams, psd as tpsd
 
 REPO = Path(__file__).resolve().parents[1]
@@ -2444,3 +2446,509 @@ def test_smc_gaussian_evidence():
         np.testing.assert_allclose(p.mean(0), post_mean, atol=0.08)
         np.testing.assert_allclose(p.var(0), post_var, atol=0.08)
         np.testing.assert_allclose(z, logZ, atol=0.15)
+
+
+# ---------------------------------------------------------------------------
+# Segment carries, ssm/segmented.py and the mixed-column backward.
+#
+# float64 against the JAX package: 1e-9 of each output's scale, elementwise
+# (the seams included); the float32 kernel route (plain versions on the CPU)
+# against the JAX package's float64: 2e-5 of each output's scale, as the
+# float32 filter checks above, where the measured gap is stated.
+# ---------------------------------------------------------------------------
+
+
+def _near(got, want, tol):
+    """Elementwise within ``tol`` of want's largest magnitude."""
+    want = np.asarray(want)
+    _close(got, want, rtol=0, atol=tol * float(np.abs(want).max()))
+
+
+def _seg_case(name, n, seed=0, columns=None, span=8.0):
+    """The JAX segmented tests' case (lengthscale 0.8, variance 1.2, noise
+    0.1) in both packages, float64."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, span, n))
+    y = np.sin(1.3 * t) + 0.3 * rng.normal(size=n)
+    if columns:
+        y = np.concatenate([y[:, None], rng.normal(size=(n, columns - 1))], axis=1)
+    kj, kt = _kernel_pair(name, l=0.8, s=1.2)
+    return t, y, kj, kt, jmarkov.lgssm_of(kj, jnp.asarray(t), 0.1, jnp.float64), \
+        tmarkov.lgssm_of(kt, _t(t), 0.1, F64)
+
+
+def _lg_rows(lt, s, e, dtype=F64):
+    return tmarkov.LGSSM(A=lt.A[s:e].to(dtype), Q=lt.Q[s:e].to(dtype), H=lt.H.to(dtype),
+                         R=lt.R[s:e].to(dtype), e1=lt.e1)
+
+
+@pytest.fixture(scope="module")
+def carry_case():
+    """An 80-step series cut at step 50, and the JAX package's fused results
+    over it (filter, smoother, a suffix scan of random elements, FFBS state
+    draws on fixed normals), from which the carries across the cut come;
+    and the JAX hooks' own results on the two pieces."""
+    n, cut, S = 80, 50, 3
+    t, y, _, _, lj, lt = _seg_case("Matern52", n, columns=2)
+    rng = np.random.default_rng(1)
+    E, g, L = _suffix_elements(rng, n, 3, 2)
+    L = np.einsum("nij,nkj->nik", L, L)
+    xi = rng.normal(size=(n, 3, S))
+
+    @jax.jit
+    def run(Y, E, g, L, xi):
+        res = jblocked.blocked_filter(lj, Y, 8)
+        sm = jblocked.blocked_smooth(lj, Y, filter_result=res, num_blocks=8)
+        scan = jblocked.blocked_suffix_scan(E, g, L, 8)
+        res1 = jblocked.blocked_filter(lj, Y[:, :1], 8)
+        Ef, gf, Lf = jblocked._smoother_elements_fast(lj, res1)
+        x = jblocked.ffbs_draw(Ef, gf, Lf, xi, 8)
+        head = jmarkov.LGSSM(A=lj.A[:cut], Q=lj.Q[:cut], H=lj.H, R=lj.R[:cut])
+        tail = jmarkov.LGSSM(A=lj.A[cut:], Q=lj.Q[cut:], H=lj.H, R=lj.R[cut:])
+        hooks = dict(
+            filter=jblocked.blocked_filter(tail, Y[cut:], 8, init=(res.m[cut - 1], res.P[cut - 1])),
+            smooth=jblocked.blocked_smooth(
+                head, Y[:cut], num_blocks=8,
+                filter_result=jkalman.FilterResult(*(f[:cut] for f in res[:6]), res.ll),
+                boundary=(lj.A[cut], res.mp[cut], res.Pp[cut], sm.ms[cut], sm.Ps[cut])),
+            scan=jblocked.blocked_suffix_scan(E[:cut], g[:cut], L[:cut], 8,
+                                              terminal=(scan[1][cut], scan[2][cut])),
+        )
+        Eh, gh, Lh = jblocked._smoother_elements_fast(
+            head, jkalman.FilterResult(*(f[:cut] for f in res1[:6]), res1.ll),
+            next_step=(lj.A[cut], res1.mp[cut], res1.Pp[cut]))
+        hooks["draw"] = jblocked.ffbs_draw(Eh, gh, Lh, xi[:cut], 8, x_term=x[cut])
+        return res, sm, scan, x, hooks
+
+    out = jax.device_get(run(*(jnp.asarray(a) for a in (y, E, g, L, xi))))
+    return dict(cut=cut, y=y, lt=lt, E=E, g=g, L=L, xi=xi, fused=out[:4], hooks=out[4])
+
+
+@pytest.mark.parametrize("route", ["tensor", "kernels"])
+def test_carry_hooks_match_jax(route, carry_case):
+    """The segment carries of the blocked engine: ``blocked_filter(init=)``
+    from the filtered state before the cut, ``blocked_suffix_scan(terminal=)``
+    and ``blocked_smooth(boundary=)`` from the step after it, and FFBS's
+    ``next_step``/``x_term``, each on one piece of a cut series against the
+    JAX package's hook on the same inputs and against its fused pass over the
+    whole series.
+
+    * "tensor": float64 tensor code, two columns; 1e-9 of each output's
+      scale.  The draws: 1e-9 against the port's fused draw, 1e-6 against
+      the JAX package's (measured 2.5e-7): their elements' L_k cancel to a
+      small part of P_k, so the port's, formed again from (A, Q), and the
+      JAX package's, from its filter's predicted moments, part at that
+      level (``test_ffbs_matches_jax``).
+    * "kernels": the kernel route's plain versions in float32, one column
+      (``decorrelate_blocked(init=)``, ``suffix_scan(terminal)``,
+      ``pallas_smooth(boundary=)``, ``pallas_posterior_sample(next_step=,
+      x_term=)``) against the JAX package's float64; 2e-5 of each output's
+      scale (measured at most 1.1e-6)."""
+    c = carry_case
+    cut, lt, Y = c["cut"], c["lt"], c["y"]
+    res, sm, scan, x = c["fused"]
+    hooks = c["hooks"]
+    if route == "tensor":
+        tol = 1e-9
+        head, tail = _lg_rows(lt, 0, cut), _lg_rows(lt, cut, len(Y))
+        fr = tblocked.blocked_filter(tail, _t(Y[cut:]), 8, init=(_t(res.m[cut - 1]), _t(res.P[cut - 1])))
+        for got, want, hook in zip(fr, res, hooks["filter"]):
+            _near(got, want[cut:] if np.ndim(want) and len(want) == len(Y) else hook, tol)
+            _near(got, hook, tol)
+        _, v, M = tblocked.blocked_suffix_scan(*(_t(a[:cut]) for a in (c["E"], c["g"], c["L"])), 8,
+                                               terminal=(_t(scan[1][cut]), _t(scan[2][cut])))
+        for got, want, hook in ((v, scan[1], hooks["scan"][1]), (M, scan[2], hooks["scan"][2])):
+            _near(got, want[:cut], tol)
+            _near(got, hook, tol)
+        head_res = tkalman.FilterResult(*(_t(f[:cut]) for f in res[:6]), _t(res.ll))
+        st = tblocked.blocked_smooth(head, _t(Y[:cut]), filter_result=head_res, num_blocks=8,
+                                     boundary=tuple(_t(a) for a in (lt.A[cut], res.mp[cut], res.Pp[cut],
+                                                                    sm.ms[cut], sm.Ps[cut])))
+        for name in ("mean", "var", "ms", "Ps"):
+            _near(getattr(st, name), getattr(sm, name)[:cut], tol)
+            _near(getattr(st, name), getattr(hooks["smooth"], name), tol)
+        m1, P1 = res.m[:, :, :1], res.P
+        mp1, Pp1 = lt.A[cut] @ _t(m1[cut - 1]), lt.A[cut] @ _t(P1[cut - 1]) @ lt.A[cut].T + lt.Q[cut]
+        x_t = tblocked.sample_from_moments(lt, _t(m1[:, :, 0]), _t(P1), _t(c["xi"]), 8)
+        xs = tblocked.sample_from_moments(head, _t(m1[:cut, :, 0]), _t(P1[:cut]), _t(c["xi"][:cut]), 8,
+                                          next_step=(lt.A[cut], mp1, Pp1), x_term=x_t[cut])
+        _near(xs, x_t[:cut], tol)
+        for want in (x[:cut], hooks["draw"]):
+            _near(xs, want, 1e-6)
+        return
+    f32, tol = torch.float32, 2e-5
+    head, tail = _lg_rows(lt, 0, cut, f32), _lg_rows(lt, cut, len(Y), f32)
+    y32 = _t(Y[:, 0], f32)
+    init = (_t(res.m[cut - 1, :, 0], f32), _t(res.P[cut - 1], f32))
+    out = tops_kalman.decorrelate_blocked(tail, y32[cut:], return_full=True, init=init)
+    ll_j = -0.5 * np.sum(np.log(2 * np.pi) + np.log(res.S[cut:]) + res.v[cut:, 0] ** 2 / res.S[cut:])
+    _close(out[0], ll_j, rtol=tol)
+    for got, want in ((out[1], res.v[cut:, 0] / np.sqrt(res.S[cut:])), (out[5], res.m[cut:, :, 0]),
+                      (out[6], res.P[cut:])):
+        _near(got, want, tol)
+    E32, g32, L32 = (_t(a[:cut], f32) for a in (c["E"], c["g"], c["L"]))
+    v, M = tops_smoother.suffix_scan(E32, g32, L32, (_t(scan[1][cut], f32), _t(scan[2][cut], f32)))
+    _near(v, scan[1][:cut], tol)
+    _near(M, scan[2][:cut], tol)
+    boundary = tuple(_t(a, f32) for a in (lt.A[cut], res.mp[cut, :, 0], res.Pp[cut], sm.ms[cut, :, 0],
+                                          sm.Ps[cut]))
+    fm, fv, _, ms, Ps, _ = tops_smoother.pallas_smooth(head, y32[:cut], return_state=True,
+                                                       boundary=boundary)
+    _near(fm, sm.mean[:cut, 0], tol)
+    _near(fv, sm.var[:cut], tol)
+    _near(ms, sm.ms[:cut, :, 0], tol)
+    _near(Ps, sm.Ps[:cut], tol)
+    mp1 = (lt.A[cut] @ _t(res.m[cut - 1, :, :1]))[:, 0]
+    Pp1 = lt.A[cut] @ _t(res.P[cut - 1]) @ lt.A[cut].T + lt.Q[cut]
+    f = tops_smoother.pallas_posterior_sample(None, head, y32[:cut], 3, xi=_t(c["xi"][:cut], f32),
+                                              next_step=(lt.A[cut], mp1, Pp1), x_term=_t(x[cut], f32))
+    _near(f, np.swapaxes(x[:cut, 0, :], 0, 1), tol)
+
+
+def _seams(n, seg):
+    """Rows on both sides of every seam."""
+    return sorted({r for s in range(seg, n, seg) for r in (s - 1, s)})
+
+
+_SEG_CASES = [
+    ("Matern52", 120, 40),  # also against the JAX segmented engine
+    ("Matern12", 64, 7),  # d = 1; ragged, the last segment of one step
+    ("Matern52", 40, 1),  # segments of one step
+    ("Matern52", 137, 400),  # one segment longer than the series
+]
+
+
+@pytest.fixture(scope="module")
+def seg_refs():
+    """The JAX package's sequential filter and smoother for the cases of
+    ``test_segmented_engine_matches_jax``, and its segmented engine on the
+    first (120 steps in segments of 40)."""
+    refs = {}
+    for name, n, _ in _SEG_CASES:
+        _, y, _, _, lj, _ = _seg_case(name, n)
+        Y3 = np.random.default_rng(3).normal(size=(n, 3))
+        refs[name, n] = jax.device_get(jax.jit(lambda y, Y3, lj=lj: (
+            jkalman.kalman_filter(lj, y), jkalman.rts_smooth(lj, y),
+            jkalman.kalman_filter(lj, Y3)))(jnp.asarray(y), jnp.asarray(Y3)))
+    _, y, _, _, lj, _ = _seg_case("Matern52", 120)
+    yj = jnp.asarray(y)
+    refs["segmented"] = jax.device_get(dict(
+        filter=jseg.segmented_filter(lj, yj, 40, 8), logpdf=jseg.segmented_logpdf(lj, yj, 40, 8),
+        decorrelate=jseg.segmented_decorrelate(lj, yj, 40, 8),
+        smooth=jseg.segmented_smooth(lj, yj, 40, 8)))
+    return refs
+
+
+@pytest.mark.parametrize("name,n,seg", _SEG_CASES)
+def test_segmented_engine_matches_jax(name, n, seg, seg_refs):
+    """``segmented_filter``, ``segmented_logpdf``, ``segmented_decorrelate``,
+    ``segmented_smooth`` (float64, 8 blocks) against the JAX package's
+    sequential filter and smoother, and in the first case against its
+    segmented engine: 1e-9 of each output's scale everywhere, the seams
+    included (measured 2e-15); three columns through the filter."""
+    t, y, _, _, lj, lt = _seg_case(name, n)
+    kf, rs, kf3 = seg_refs[name, n]
+    out = tseg.segmented_filter(lt, _t(y), seg, 8)
+    rows = _seams(n, seg)
+    for got, want in zip(out, kf):
+        _near(got, want, 1e-9)
+        if rows and len(want) == n:
+            _near(_np(got)[rows], np.asarray(want)[rows], 1e-9)
+    _near(tseg.segmented_logpdf(lt, _t(y), seg, 8), kf.ll[0], 1e-12)
+    ll, alpha = tseg.segmented_decorrelate(lt, _t(y), seg, 8)
+    _near(alpha, kf.v[:, 0] / np.sqrt(kf.S), 1e-9)
+    _near(ll, kf.ll[0], 1e-12)
+    sm = tseg.segmented_smooth(lt, _t(y), seg, 8)
+    for f in ("mean", "var", "ms", "Ps", "ll"):
+        _near(getattr(sm, f), getattr(rs, f), 1e-9)
+    Y3 = np.random.default_rng(3).normal(size=(n, 3))
+    for got, want in zip(tseg.segmented_filter(lt, _t(Y3), seg, 8), kf3):
+        _near(got, want, 1e-9)
+    if (name, n, seg) == _SEG_CASES[0]:
+        js = seg_refs["segmented"]
+        for got, want in zip(out, js["filter"]):
+            _near(got, want, 1e-9)
+        _near(tseg.segmented_logpdf(lt, _t(y), seg, 8), js["logpdf"], 1e-12)
+        _near(alpha, js["decorrelate"][1], 1e-9)
+        for f in ("mean", "var", "ms", "Ps"):
+            _near(getattr(sm, f), getattr(js["smooth"], f), 1e-9)
+
+
+@pytest.fixture(scope="module")
+def seg_grad_refs():
+    """JAX references of the gradient cases at n = 130: the one-shot
+    closed-form gradient and the JAX ``make_segmented_nll_grad`` in
+    segments of 65."""
+    from gpar_at_scale_tpu.ssm import blocked_grad as jbg
+
+    n = 130
+    t, y, _, _, lj, _ = _seg_case("Matern52", n)
+    p0 = jnp.asarray([0.2, -0.1, -1.5])
+
+    def kernel_fn(p):
+        return jk.Matern52(lengthscale=jnp.exp(p[0]), variance=jnp.exp(p[1])), jnp.exp(p[2])
+
+    R = jnp.broadcast_to(lj.R, (n,))
+
+    @jax.jit
+    def one_shot(y):
+        ll, aux = jbg.loglik_fwd_aux(lj.A, lj.Q, R, lj.H, y, num_blocks=8)
+        return ll, jbg.loglik_bwd(lj.A, lj.Q, R, lj.H, aux, num_blocks=8)
+
+    yj = jnp.asarray(y)
+    ll, cts = jax.device_get(one_shot(yj))
+    return dict(ll=ll, cts=cts, nll_grad=jax.device_get(
+        jseg.make_segmented_nll_grad(kernel_fn, jnp.asarray(t), yj, 65, 8)(p0)))
+
+
+@pytest.mark.parametrize("seg", [41, 65, 1, 400])
+def test_segmented_gradients_match_jax(seg, seg_grad_refs):
+    """``segmented_loglik_grad`` (ll, dA, dQ, dR, dy) against the JAX
+    package's one-shot closed-form gradient, and ``make_segmented_nll_grad``
+    (each segment discretized on its own, its pullback by
+    ``torch.autograd.grad``) against ``torch.autograd`` of the port's fused
+    ``blocked_logpdf`` and, in segments of 65, against the JAX
+    ``make_segmented_nll_grad``; n = 130 (segments of 41: ragged), float64,
+    8 blocks: 1e-9 of each output's scale (measured 1e-15)."""
+    n = 130
+    t, y, _, _, _, lt = _seg_case("Matern52", n)
+    r = seg_grad_refs
+    got = tseg.segmented_loglik_grad(lt, _t(y), seg, 8)
+    _near(got[0], r["ll"], 1e-12)
+    for a, b in zip(got[1:], r["cts"]):
+        _near(a, b, 1e-9)
+
+    def kernel_fn(p):
+        return tk.Matern52(lengthscale=torch.exp(p[0]), variance=torch.exp(p[1])), torch.exp(p[2])
+
+    p0 = _t([0.2, -0.1, -1.5])
+    ll, g = tseg.make_segmented_nll_grad(kernel_fn, _t(t), _t(y), seg, 8)(p0)
+    p = p0.clone().requires_grad_(True)
+    k, nv = kernel_fn(p)
+    ll_t = tblocked.blocked_logpdf(tmarkov.lgssm_of(k, _t(t), nv), _t(y), 8)
+    ll_t.backward()
+    wants = [(ll_t.detach(), p.grad)] + ([r["nll_grad"]] if seg == 65 else [])
+    for want_ll, want_g in wants:
+        _near(ll, want_ll, 1e-12)
+        _near(g, want_g, 1e-9)
+
+
+def test_segmented_t_variants_match_jax():
+    """Per-segment discretization from the time grid (``segmented_filter_t``,
+    ``segmented_decorrelate_t``, ``segmented_smooth_t``; 120 steps in
+    segments of 40, of 43 (the last of 34) and in one segment of 200)
+    against the JAX package's sequential filter and smoother on the whole
+    series' LGSSM, and in segments of 40 against its ``_t`` variants,
+    float64: 1e-9 of each output's scale."""
+    n = 120
+    t, y, kj, kt, lj, _ = _seg_case("Matern52", n)
+    tj, yj = jnp.asarray(t), jnp.asarray(y)
+    ref_f, ref_s = jax.device_get(jax.jit(lambda y: (jkalman.kalman_filter(lj, y),
+                                                      jkalman.rts_smooth(lj, y)))(yj))
+    seg_j = jax.device_get((jseg.segmented_filter_t(kj, tj, 0.1, yj, 40, 8),
+                            jseg.segmented_decorrelate_t(kj, tj, 0.1, yj, 40, 8),
+                            jseg.segmented_smooth_t(kj, tj, 0.1, yj, 40, 8)))
+    fused = (ref_f, (ref_f.ll[0], ref_f.v[:, 0] / np.sqrt(ref_f.S)), ref_s)
+    for seg in (40, 43, 200):
+        f = tseg.segmented_filter_t(kt, _t(t), 0.1, _t(y), seg, 8)
+        ll, alpha = tseg.segmented_decorrelate_t(kt, _t(t), 0.1, _t(y), seg, 8)
+        s = tseg.segmented_smooth_t(kt, _t(t), 0.1, _t(y), seg, 8)
+        for want_f, want_d, want_s in (fused, seg_j) if seg == 40 else (fused,):
+            for a, b in zip(f, want_f):
+                _near(a, b, 1e-9)
+            _near(ll, want_d[0], 1e-12)
+            _near(alpha, want_d[1], 1e-9)
+            for name in ("mean", "var", "ms", "Ps"):
+                _near(getattr(s, name), getattr(want_s, name), 1e-9)
+    assert f.m.shape == (n, 3, 1) and s.mean.shape == (n,)
+
+
+@pytest.fixture(scope="module")
+def sum_kernel_refs():
+    """The JAX package's sequential filter and smoother and one-shot loglik
+    gradient of a sum-kernel SDE (Matern-1/2 + Matern-3/2, d = 3,
+    H = [1, 1, 0]) over 77 steps."""
+    from gpar_at_scale_tpu.ssm import blocked_grad as jbg
+
+    n = 77
+    t, y, _, _, lj, lt = _seg_case("Matern12+Matern32", n)
+    R = jnp.broadcast_to(lj.R, (n,))
+
+    @jax.jit
+    def refs(y):
+        _, aux = jbg.loglik_fwd_aux(lj.A, lj.Q, R, lj.H, y)
+        return jkalman.kalman_filter(lj, y), jkalman.rts_smooth(lj, y), jbg.loglik_bwd(
+            lj.A, lj.Q, R, lj.H, aux)
+
+    return y, lt, jax.device_get(refs(jnp.asarray(y)))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_segmented_sum_kernel_general_H(dtype, sum_kernel_refs, monkeypatch):
+    """A sum-kernel SDE in segments of 30 over 77 steps takes the tensor
+    code in both precisions: in float32 no scan kernel's wrapper is called
+    (they raise here).  Against the JAX package's sequential filter and
+    smoother (float64): 1e-9 of each output's scale in float64, 2e-5 in
+    float32 (measured 2.2e-7); the loglik gradient against the JAX one-shot
+    one, 1e-9 and 1e-4 (float32 measured 4e-6)."""
+    y, lt, (kf, rs, cts) = sum_kernel_refs
+    dt = getattr(torch, dtype)
+    lg = _lg_rows(lt, 0, len(y), dt)
+    assert not tops_kalman.pallas_supported(lg)
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a scan kernel's wrapper was called")
+
+    for mod, name in ((tops_kalman, "phase1"), (tops_kalman, "phase3"),
+                      (tops_smoother, "suffix_reduce"), (tops_smoother, "suffix_replay")):
+        monkeypatch.setattr(mod, name, refuse)
+    tol = 1e-9 if dtype == "float64" else 2e-5
+    out = tseg.segmented_filter(lg, _t(y, dt), 30, 8)
+    for f in ("m", "P", "S", "v"):
+        _near(getattr(out, f), getattr(kf, f), tol)
+    _near(out.ll, kf.ll, tol)
+    sm = tseg.segmented_smooth(lg, _t(y, dt), 30, 8)
+    _near(sm.mean, rs.mean, tol)
+    _near(sm.var, rs.var, tol)
+    got = tseg.segmented_loglik_grad(lg, _t(y, dt), 30, 8)
+    for a, b in zip(got[1:], cts):
+        _near(a, b, 1e-9 if dtype == "float64" else 1e-4)
+
+
+@pytest.fixture(scope="module")
+def sample_refs():
+    """The JAX FFBS test's case (Matern-3/2, n = 60, 4 draws on fixed
+    normals): the JAX package's blocked draw, and its segmented draw in
+    segments of 20."""
+    n, S = 60, 4
+    t, y, _, _, _, _ = _seg_case("Matern32", n)
+    y = np.sin(2 * t) + np.random.default_rng(5).normal(size=n) * np.sqrt(0.1)
+    lj = jmarkov.lgssm_of(jk.Matern32(lengthscale=0.8, variance=1.2), jnp.asarray(t), 0.1)
+    xi = np.random.default_rng(6).normal(size=(n, 2, S))
+    yj, xij = jnp.asarray(y), jnp.asarray(xi)
+    blk = jax.jit(lambda y, xi: jblocked.blocked_posterior_sample(None, lj, y, S, 8, xi=xi))(yj, xij)
+    seg = jseg.segmented_posterior_sample(None, lj, yj, S, 20, 8, xi=xij)
+    return t, y, xi, np.asarray(blk), np.asarray(seg)
+
+
+@pytest.mark.parametrize("seg", [17, 20, 60, 1])
+def test_segmented_posterior_sample_matches_jax(seg, sample_refs):
+    """``segmented_posterior_sample`` given xi against the JAX package's
+    blocked draw on the same xi (and its segmented draw at 20): 1e-9 of the
+    largest value, as the JAX test holds its own (measured 1e-15); the
+    float32 kernel route (K1/K2 and K4a/K4b, plain versions on the CPU, one
+    float32 segment's elements formed in float64) within 2e-5 of it
+    (measured 1.6e-6)."""
+    t, y, xi, blk, seg_j = sample_refs
+    kt = tk.Matern32(lengthscale=_t(0.8), variance=_t(1.2))
+    lt = tmarkov.lgssm_of(kt, _t(t), 0.1, F64)
+    f = tseg.segmented_posterior_sample(None, lt, _t(y), 4, seg, 8, xi=_t(xi))
+    assert f.shape == (4, 60)
+    _near(f, blk, 1e-9)
+    if seg == 20:
+        _near(f, seg_j, 1e-9)
+    f32 = torch.float32
+    f_k = tseg.segmented_posterior_sample(None, _lg_rows(lt, 0, 60, f32), _t(y, f32), 4, seg,
+                                          xi=_t(xi, f32))
+    _near(f_k, blk, 2e-5)
+    with pytest.raises(ValueError, match="one observation column"):
+        tseg.segmented_posterior_sample(None, lt, _t(np.stack([y, y], 1)), 4, seg, xi=_t(xi))
+
+
+@pytest.fixture(scope="module")
+def mixed_refs():
+    """The JAX mixed-column test's case (n = 60, here M = 9) at the DTC bound's
+    cotangent: the JAX package's direct backward, its cotangent factor and
+    its mixed sums in chunks of 5 plus the ld part."""
+    from gpar_at_scale_tpu.ssm import blocked_grad as jbg
+
+    rng = np.random.default_rng(0)
+    n, m = 60, 9
+    t = np.sort(rng.uniform(0, 6, size=n))
+    X = rng.normal(size=(n, 2))
+    y = np.sin(t) + 0.3 * rng.normal(size=n)
+    Z = X[np.linspace(0, n - 1, m).astype(int)]
+    out_k = jk.Matern52(lengthscale=0.9, variance=1.2)
+    lj = jmarkov.lgssm_of(jk.Matern52(lengthscale=0.7, variance=1.0), jnp.asarray(t), 0.09,
+                          jnp.float64)
+    U = jnp.concatenate([jnp.asarray(y)[:, None], out_k(jnp.asarray(X), jnp.asarray(Z))], axis=1)
+    Kuu = out_k(jnp.asarray(Z), jnp.asarray(Z)) + 0.09 * jnp.eye(m)
+    R = jnp.broadcast_to(lj.R, (n,))
+
+    def bound(G, logdet, Kuu):
+        g, Gb = G[1:, 0], G[1:, 1:]
+        L_uu, L_P = jnp.linalg.cholesky(Kuu), jnp.linalg.cholesky(Gb + Kuu)
+        wp = jax.scipy.linalg.solve_triangular(L_P, g, lower=True)
+        ld = lambda L: 2.0 * jnp.sum(jnp.log(jnp.diagonal(L)))  # noqa: E731
+        return -0.5 * (n * 1.8378770664093453 + logdet + ld(L_P) - ld(L_uu) + G[0, 0]
+                       - jnp.sum(wp**2))
+
+    @jax.jit
+    def direct(U):
+        G, logdet, aux = jbg.whiten_fwd_aux(lj.A, lj.Q, R, lj.H, U, num_blocks=8)
+        ct_G, ct_ld = jax.grad(bound, argnums=(0, 1))(G, logdet, Kuu)
+        return ct_G, ct_ld, jbg.whiten_bwd(lj.A, lj.Q, R, lj.H, aux, ct_G, ct_ld, num_blocks=8)
+
+    ct_G, ct_ld, ref = jax.device_get(direct(U))
+    F = jbg.cotangent_factor(ct_G)
+    chunk = jax.jit(lambda Fk: jbg.whiten_bwd_mixed_chunk(lj.A, lj.Q, R, lj.H, U, Fk, num_blocks=8))
+    ld_part = jax.jit(lambda c: jbg.whiten_bwd_ld_part(lj.A, lj.Q, R, lj.H, c, num_blocks=8))
+    sums = list(ld_part(ct_ld)) + [0.0]
+    for j in range(0, m + 1, 5):
+        sums = [a + b for a, b in zip(sums, chunk(jnp.asarray(F[:, j:j + 5])))]
+    return dict(t=t, U=np.asarray(U), ct_G=ct_G, ct_ld=float(ct_ld), ref=ref, F=F,
+                sums=jax.device_get(sums))
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 10])
+def test_mixed_backward_matches_jax(chunk, mixed_refs):
+    """The mixed-column backward: ``cotangent_factor`` against the JAX
+    package's (and -F F^T = sym(ct_G), 1e-11 of its scale); the chunks of
+    ``whiten_bwd_mixed_chunk`` of widths 1, 5 and M + 1 plus
+    ``whiten_bwd_ld_part`` against the port's ``whiten_bwd``, the JAX
+    package's and its mixed sums in chunks of 5, float64: 1e-9 of each
+    cotangent's scale (measured 5e-12, the factor's ridge).  The kernel
+    route (``ops.grad``, float32 plain versions: the gain pass once, K3 and
+    a K-column suffix scan per chunk) against the JAX float64 backward
+    within 2e-5 of each scale (measured 1.1e-6), and ``MixedWhitenGram``'s
+    gradient against ``WhitenGram``'s through the same float32 forward,
+    2e-5 (measured 6.5e-7)."""
+    r = mixed_refs
+    lt = tmarkov.lgssm_of(tk.Matern52(lengthscale=_t(0.7), variance=_t(1.0)), _t(r["t"]), 0.09, F64)
+    n = lt.num_steps
+    A, Q, R, H, U = lt.A, lt.Q, lt.R.expand(n), lt.H, _t(r["U"])
+    F = tblocked_grad.cotangent_factor(r["ct_G"])
+    _near(F, r["F"], 1e-12)
+    _near(-(F @ F.T), _sym(np.asarray(r["ct_G"])), 1e-11)
+    _, _, aux = tblocked_grad.whiten_fwd_aux(A, Q, R, H, U)
+    own = tblocked_grad.whiten_bwd(A, H, aux, _t(r["ct_G"]), r["ct_ld"])
+    acc = list(tblocked_grad.whiten_bwd_ld_part(A, Q, R, H, r["ct_ld"])) + [torch.zeros_like(U)]
+    for j in range(0, F.shape[1], chunk):
+        for i, part in enumerate(tblocked_grad.whiten_bwd_mixed_chunk(A, Q, R, H, U,
+                                                                      _t(F[:, j:j + chunk]))):
+            acc[i] = acc[i] + part
+    for got, a, b, c in zip(acc, own, r["ref"], r["sums"]):
+        _near(got, a, 1e-9)
+        _near(got, b, 1e-9)
+        _near(got, c, 1e-9)
+    if chunk != 5:
+        return
+    f32 = torch.float32
+    A32, Q32, R32, U32 = (x.to(f32).contiguous() for x in (A, Q, R, U))
+    gains = tops_grad.gain_pass(A32, Q32, R32)
+    acc = list(tops_grad.whiten_bwd_ld_part(A32, r["ct_ld"], gains)) + [torch.zeros_like(U32)]
+    for j in range(0, F.shape[1], chunk):
+        for i, part in enumerate(tops_grad.whiten_bwd_mixed_chunk(A32, U32, _t(F[:, j:j + chunk], f32),
+                                                                  gains)):
+            acc[i] = acc[i] + part
+    for got, want in zip(acc, r["ref"]):
+        _near(got, want, 2e-5)
+    ct_G = _t(r["ct_G"])
+    grads = []
+    for fn, extra in ((tops_grad.WhitenGram.apply, ()), (tops_grad.MixedWhitenGram.apply, (chunk,))):
+        leaves = [x.clone().requires_grad_(True) for x in (A32, Q32, R32, U32)]
+        G, logdet = fn(*leaves, *extra)
+        ((G * ct_G).sum() + r["ct_ld"] * logdet).backward()
+        grads.append([x.grad for x in leaves])
+    for a, b in zip(*grads):
+        _near(a, b, 2e-5)
