@@ -107,7 +107,23 @@ Phases, each of which fails the run:
    (``ops/grad.py::MixedWhitenGram``: K1/K2 once, K3 and K4a/K4b per chunk)
    against the plain ``WhitenGram`` backward, with the peak memory of each
    and of the plain backward at M = 256; 10 Adam steps at M = 256 with the
-   mixed backward.
+   mixed backward;
+19. dist -- the parallel layer (``gpar_at_scale_torch/parallel/``): every
+   path over NCCL with one rank in this process (the unsharded engines:
+   the references, and the unsharded seconds and peak memory), then over
+   gloo with 2 spawned ranks sharing the card: ``benchmarks/pod_scale.py``'s
+   phase B at N = 1e6 (8 columns through ``make_sharded_decorrelate``,
+   ``make_sharded_smooth`` and the gradient of ``make_sharded_logpdf`` on
+   the first column; K1/K2 per column, K4a/K4b), the model-sharded bound
+   and gradient at N = 1e6, M = 256 (K3 per slab), ``make_sharded_train_step``
+   with 8 chains x 5 Adam steps on (chain 2, data 1) and (chain 1, data 2),
+   and ``fit_gpar(mesh=)`` on the EEG chain under "on" (K6a-c); each against
+   the unsharded result, with seconds and peak memory per rank;
+20. aux -- ``run_with_checkpointing`` stopped after 5 of 10 Adam steps and
+   resumed, bit for bit against an uninterrupted run; ``stage_timer``
+   around a K3 sweep against CUDA events; ``load_eeg_csv`` on a CSV with a
+   text time column and an empty cell; and, first of all phases, a
+   ``profiler_trace`` around a K3 sweep that must hold its kernels.
 
 Phase 3 also runs the Monte-Carlo predictive ([mc]): the served chain's
 last conditional with ``predict_scaled(num_samples=100, generator=...)``
@@ -1852,13 +1868,14 @@ def parallel_chain(t, Y, params, seq_model, seq_s, failures):
     return launches
 
 
-def eeg_parallel(seq_ends, failures):
+def eeg_parallel(seq_ends, failures, on_ends=None):
     """[parallel] The EEG chain's conditionals fitted with
     ``fit_conditionals_parallel`` on the channels in chain order (F3-F6
     observed, then FZ, F1, F2: six conditionals) under "on" (float32, K6a-c) and "off" (float64), the example's
     starts and L-BFGS; FZ, F1 and F2 by their float64 objective at the end
     point beside the sequential fits' ([eeg]).  Returns K6a-c's launches
-    under "on"."""
+    under "on"; ``on_ends`` (a list) receives the float64 objective at the
+    six end points under "on"."""
     import numpy as np
     import torch
 
@@ -1897,6 +1914,8 @@ def eeg_parallel(seq_ends, failures):
                  f"end points: " + ", ".join(rows))
             if mode == "on":
                 on_launches = launches
+                if on_ends is not None:
+                    on_ends.extend(_nll64(fit) for fit in conds)
                 if not all(c > 0 for c in launches):
                     failures.append(f"[parallel] EEG under 'on' did not launch every K6 kernel: {launches}")
             elif any(launches):
@@ -2848,6 +2867,511 @@ def mixed_bwd_phase(seed, failures):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The parallel layer ([dist]) and the run-support modules ([aux])
+# ---------------------------------------------------------------------------
+
+# [dist]: the parallel layer (gpar_at_scale_torch/parallel/) on one card,
+# over NCCL with one rank (every axis of size 1: the unsharded engines, whose
+# seconds and peak memory are the unsharded figures and whose results are
+# the references) and over gloo with DIST_RANKS ranks that share the card
+# (NCCL refuses two ranks on one GPU; the gloo collectives of CUDA tensors
+# are staged through the host, parallel/distributed.py).  Its paths:
+#   seq   -- benchmarks/pod_scale.py's phase B at its chip default
+#            (:95-120, :133): N = 10^6 steps (t = cumsum(U(0.5, 1.5)) / N,
+#            numpy seed 1), 8 columns of standard normals, Matern-5/2 at
+#            l = 0.5, sigma^2 = 1, noise 0.1, float32, through
+#            make_sharded_decorrelate over the "data" axis; then
+#            make_sharded_smooth and the gradient of make_sharded_logpdf in
+#            (log l, log sigma^2, log noise) on the first column;
+#   model -- dtc_objective_modelsharded's nlml and gradient
+#            (make_modelsharded_nlml) on million_dtc.py's data at N = 10^6,
+#            M = 256 (its --mixed-bwd configuration), start MIXED_START;
+#   chain -- make_sharded_train_step, 8 chains of the chain's second output
+#            (chain_scale.py's conditional: N = 10^6, M = 32), 5 Adam steps
+#            at 1e-2, on a (chain 2, data 1) and a (chain 1, data 2) mesh;
+#   fit   -- fit_gpar(mesh=) on the EEG chain (F3-F6, FZ, F1, F2: six
+#            conditionals) over a chain axis of 2 ranks under dense mode
+#            "on", [eeg]'s starts and L-BFGS.
+# Bounds, no looser than [segmented]'s for the same quantities: smoothed
+# means within SEG_SMOOTH_SD posterior sd and sd within SEG_SMOOTH_SD of
+# itself; gradients within [grad]'s bound at N (_grad_gap); values as nll/N
+# (or ll/N) within FULL_TRACE_ATOL; the whitened columns within the K2
+# check's tolerance of their largest magnitude (both sides run K1/K2 on
+# other blockings).  The fit: each conditional's float64 objective at its
+# end point within DIST_FIT_RTOL of [parallel]'s unsharded fit: the same
+# computation per conditional, but float32 L-BFGS follows its rounding (on a
+# CPU, other thread counts moved the end points' objectives by 1e-4
+# relative; a conditional fitted on the wrong columns misses by 2e-2 and
+# more).  More ranks than 2, and any
+# speed or scaling across cards, cannot be had on one card.
+DIST_N, DIST_COLS, DIST_RANKS = 1_000_000, 8, 2
+DIST_M_MODEL, DIST_CHAINS, DIST_STEPS, DIST_LR = 256, 8, 5, 1e-2
+DIST_FIT_RTOL = 1e-3
+_DIST_DIR = "build/dist"
+
+
+def pod_scale_data(n, cols):
+    """benchmarks/pod_scale.py's phase B data: t (n,) float64, Y (n, cols)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    t = np.cumsum(rng.uniform(0.5, 1.5, size=n)) / n
+    return t, rng.normal(size=(n, cols))
+
+
+def _pod_lgssm(t, p):
+    from gpar_at_scale_torch.kernels import Matern52
+    from gpar_at_scale_torch.ssm.markov import lgssm_of
+
+    import torch
+
+    l, v, nv = torch.exp(p)
+    return lgssm_of(Matern52(lengthscale=l, variance=v), t, nv, torch.float32)
+
+
+def _timed(fn):
+    """(fn(), seconds, peak device GiB) with the device synchronized."""
+    import torch
+
+    _reset_peak()
+    _sync(_DEV)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(_DEV)
+    return out, time.perf_counter() - t0, _peak()
+
+
+def _counted(fn):
+    """(fn(), seconds, peak GiB, launches of every kernel in fn())."""
+    _zero_counts()
+    out, secs, peak = _timed(fn)
+    return out, secs, peak, _all_counts()
+
+
+def _dist_seq(mesh):
+    """The seq path on ``mesh``'s "data" axis: (outputs, figures)."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.parallel.seqshard import (
+        make_sharded_decorrelate,
+        make_sharded_logpdf,
+        make_sharded_smooth,
+    )
+
+    t_np, Y_np = pod_scale_data(DIST_N, DIST_COLS)
+    t = torch.as_tensor(t_np, device=_DEV)
+    Y = torch.as_tensor(Y_np).to(_DEV, torch.float32)
+    p0 = torch.tensor([math.log(0.5), 0.0, math.log(0.1)], dtype=torch.float64, device=_DEV)
+
+    def grad():
+        p = p0.clone().requires_grad_(True)
+        ll = make_sharded_logpdf(mesh)(_pod_lgssm(t, p), Y[:, 0])
+        return ll.detach(), torch.autograd.grad(ll, p)[0]
+
+    def run():
+        with torch.no_grad():
+            lg = _pod_lgssm(t, p0)
+            dec = make_sharded_decorrelate(mesh)(lg, Y)
+            sm = make_sharded_smooth(mesh)(lg, Y[:, 0])
+        return dec, sm, grad()
+
+    (dec, sm, (ll, g)), secs, peak, launches = _counted(run)
+    _, dec_s, dec_peak = _timed(lambda: make_sharded_decorrelate(mesh)(_pod_lgssm(t, p0), Y))
+    out = dict(ll=dec[0].double().cpu(), alpha=dec[1].cpu(), mean=sm.mean.cpu(), var=sm.var.cpu(),
+               lp=float(ll), grad=g.cpu().numpy())
+    figs = dict(secs=secs, peak=peak, dec_secs=dec_s, dec_peak=dec_peak, launches=launches,
+                points_per_s=DIST_N * DIST_COLS / dec_s)
+    del dec, sm
+    return out, figs
+
+
+def _dist_model_data():
+    import torch
+
+    from gpar_at_scale_torch.utils.params import pack_gpar
+
+    t_np, X_np, y_np = million_dtc_data(DIST_N, MIXED_N_STAR, 0)
+    t = torch.as_tensor(t_np, device=_DEV)
+    X, y = torch.as_tensor(X_np).to(_DEV, torch.float32), torch.as_tensor(y_np).to(_DEV, torch.float32)
+    Z = X[:: max(1, DIST_N // DIST_M_MODEL)][:DIST_M_MODEL]
+    p0 = pack_gpar(*(torch.tensor(v, dtype=torch.float64) for v in MIXED_START)).to(_DEV, torch.float32)
+    return t, X, y, Z, p0
+
+
+def _dist_model(mesh):
+    """The model path on ``mesh``'s "model" axis: nlml and its gradient."""
+    import torch
+
+    from gpar_at_scale_torch.parallel.modelshard import make_modelsharded_nlml, place_modelsharded
+
+    t, X, y, Z, p0 = _dist_model_data()
+
+    def run():
+        p = p0.clone().requires_grad_(True)
+        v = make_modelsharded_nlml(mesh)(p, t, X, y, place_modelsharded(mesh, Z))
+        return float(v.detach()), torch.autograd.grad(v, p)[0].double().cpu().numpy()
+
+    (value, g), secs, peak, launches = _counted(run)
+    return dict(value=value, grad=g), dict(secs=secs, peak=peak, launches=launches)
+
+
+def _dist_chain(mesh, data):
+    """The chain path: DIST_STEPS steps of make_sharded_train_step."""
+    import torch
+
+    from gpar_at_scale_torch.parallel.sharded import make_sharded_train_step
+
+    init, step, place = make_sharded_train_step(mesh, learning_rate=DIST_LR)
+    p, *placed = place(*(data[k].to(_DEV) for k in ("chain_p", "chain_t", "chain_X", "chain_y",
+                                                     "chain_Z")))
+
+    def run():
+        state, losses = init(p), []
+        for _ in range(DIST_STEPS):
+            state, loss = step(state, *placed)
+            losses.append(loss.double().cpu())
+        return torch.stack(losses)
+
+    losses, secs, peak, launches = _counted(run)
+    return losses, dict(secs=secs, peak=peak, launches=launches)
+
+
+def _dist_fit(mesh):
+    """The fit path: fit_gpar(mesh=) on the EEG chain under "on"; the
+    float64 objective at each conditional's end point."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.data.eeg import TRAIN_POINTS, generate_synthetic_eeg
+    from gpar_at_scale_torch.models import GPARConfig, fit_gpar
+    from gpar_at_scale_torch.utils.params import pack_gp, pack_gpar
+
+    ds = generate_synthetic_eeg(seed=0)
+    n = TRAIN_POINTS
+    order = [ds.channels.index(c) for c in EEG_OBSERVED + EEG_PREDICTED]
+    f32 = torch.float32
+    as_dev = lambda a: torch.as_tensor(np.asarray(a)).to(_DEV, f32)  # noqa: E731
+    cfg = GPARConfig(backend="scaled", num_pseudo_points=n, max_opt_steps=EEG_STEPS, dtype=f32)
+    starts = [_tensor_params(EEG_GP_START, pack_gp, _DEV, f32)] + [
+        _tensor_params(EEG_COND_START, pack_gpar, _DEV, f32)] * (len(order) - 1)
+    _set_dense_mode("on")
+    try:
+        model, secs, peak, launches = _counted(lambda: fit_gpar(
+            None, as_dev(ds.t[:n]), as_dev(ds.Y[:n, order]), cfg, init_params=starts, mesh=mesh,
+            device=_DEV))
+    finally:
+        _set_dense_mode("off")
+    return [_nll64(c) for c in model.conditionals], dict(secs=secs, peak=peak, launches=launches)
+
+
+def dist_rank(path):
+    """[dist] on one rank of the gloo group: every path over DIST_RANKS
+    ranks, compared with the references in ``path``.  Returns numbers."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.parallel import make_mesh
+
+    ref = torch.load(path, weights_only=True)
+    out = {}
+    seq, figs = _dist_seq(make_mesh(("data",)))
+    out["seq"] = dict(figs, alpha_rel=float((seq["alpha"] - ref["alpha"]).abs().max()
+                                            / ref["alpha"].abs().max()),
+                      ll_gap=float((seq["ll"] - ref["ll"]).abs().max() / DIST_N),
+                      mean_sd=float(((seq["mean"].double() - ref["mean"].double())
+                                     / ref["var"].double().sqrt()).abs().max()),
+                      sd_rel=float(((seq["var"].double().sqrt() - ref["var"].double().sqrt())
+                                    / ref["var"].double().sqrt()).abs().max()),
+                      lp_gap=abs(seq["lp"] - float(ref["lp"])) / DIST_N, grad=seq["grad"])
+    model, figs = _dist_model(make_mesh(("model",)))
+    out["model"] = dict(figs, value=model["value"], grad=model["grad"])
+    for name, sizes in (("chain21", (DIST_RANKS, 1)), ("chain12", (1, DIST_RANKS))):
+        losses, figs = _dist_chain(make_mesh(("chain", "data"), sizes), ref)
+        out[name] = dict(figs, gap=float(((losses - ref["chain_losses"]) / DIST_N).abs().max()),
+                         equal=bool(torch.equal(losses, ref["chain_losses"])))
+    ends, figs = _dist_fit(make_mesh(("chain", "data"), (DIST_RANKS, 1)))
+    out["fit"] = dict(figs, ends=np.asarray(ends))
+    return out
+
+
+def _dist_line(tag, figs):
+    return (f"{figs['secs']:.3f} s, peak device memory {figs['peak']:.2f} GiB; launches "
+            + ", ".join(f"{k.split()[0]} {v}" for k, v in figs["launches"].items() if v))
+
+
+def dist_phase(t_np, Y_np, params, par_ends, failures):
+    """[dist] on the card: every path over NCCL with one rank in this
+    process (the references and the unsharded figures), then over gloo with
+    DIST_RANKS spawned ranks on the same card (the kernels are built
+    already: the ranks load them).  Returns the launches per path, summed
+    over the gloo ranks."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gpar_at_scale_torch.models.gpar import _select_pseudo_points
+    from gpar_at_scale_torch.parallel import initialize_distributed, make_mesh
+    from gpar_at_scale_torch.parallel.launch import run_ranks
+
+    shutil.rmtree(_DIST_DIR, ignore_errors=True)
+    os.makedirs(_DIST_DIR)
+    t0 = time.perf_counter()
+    initialize_distributed(f"file://{os.path.abspath(_DIST_DIR)}/nccl_store", 1, 0, backend="nccl")
+    try:
+        seq, seq_figs = _dist_seq(make_mesh(("data",)))
+        model, model_figs = _dist_model(make_mesh(("model",)))
+        rng = np.random.default_rng(7)
+        X = torch.as_tensor(Y_np[:, :1], dtype=torch.float32)
+        data = dict(chain_t=torch.as_tensor(t_np), chain_X=X,
+                    chain_y=torch.as_tensor(Y_np[:, 1], dtype=torch.float32),
+                    chain_Z=_select_pseudo_points(X, M),
+                    chain_p=(params[1].double().cpu()[None]
+                             + 0.05 * torch.as_tensor(rng.normal(size=(DIST_CHAINS, 5)))).float())
+        losses, chain_figs = _dist_chain(make_mesh(("chain", "data"), (1, 1)), data)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    _log(f"[dist] NCCL, 1 rank ({backend}; the unsharded engines): seq (decorrelate {DIST_COLS} "
+         f"columns, smoother, logpdf gradient at N={DIST_N:,}) {_dist_line('seq', seq_figs)}; "
+         f"decorrelate alone {seq_figs['dec_secs']:.4f} s ({seq_figs['points_per_s']:.4e} points/s) "
+         f"at {seq_figs['dec_peak']:.2f} GiB")
+    _log(f"[dist] NCCL, 1 rank: model (nlml and gradient, N={DIST_N:,}, M={DIST_M_MODEL}) "
+         f"{_dist_line('model', model_figs)}; nll/N {model['value'] / DIST_N:.10f}")
+    _log(f"[dist] NCCL, 1 rank: chain ({DIST_CHAINS} chains x {DIST_STEPS} Adam steps, N={DIST_N:,}, "
+         f"M={M}) {_dist_line('chain', chain_figs)}")
+    path = os.path.join(_DIST_DIR, "references.pt")
+    torch.save(dict(alpha=seq["alpha"], ll=seq["ll"], mean=seq["mean"], var=seq["var"],
+                    lp=torch.tensor(seq["lp"]), chain_losses=losses, **data), path)
+    ranks = run_ranks(dist_rank, DIST_RANKS, path, init_file=os.path.abspath(f"{_DIST_DIR}/gloo_store"),
+                      backend="gloo", timeout=900.0)
+    _log(f"[dist] gloo, {DIST_RANKS} ranks on one card: spawned, ran and joined in "
+         f"{time.perf_counter() - t0:.1f} s since the phase began")
+    paths = {}
+    for r, res in enumerate(ranks):
+        s = res["seq"]
+        ok_seq = (s["alpha_rel"] <= TOL["K2"] and s["ll_gap"] <= FULL_TRACE_ATOL
+                  and s["mean_sd"] <= SEG_SMOOTH_SD and s["sd_rel"] <= SEG_SMOOTH_SD
+                  and s["lp_gap"] <= FULL_TRACE_ATOL)
+        ok_g, gap = _grad_gap(s["grad"], seq["grad"], DIST_N)
+        _log(f"[dist] gloo rank {r}: seq {_dist_line('seq', s)}; decorrelate alone {s['dec_secs']:.4f} s "
+             f"({s['points_per_s']:.4e} points/s) at {s['dec_peak']:.2f} GiB; vs the unsharded: "
+             f"alpha {s['alpha_rel']:.2e} of max |alpha| (<= {TOL['K2']}), |ll| / N {s['ll_gap']:.2e}, "
+             f"smoothed mean {s['mean_sd']:.2e} sd, sd {s['sd_rel']:.2e} (<= {SEG_SMOOTH_SD}), "
+             f"|logpdf| / N {s['lp_gap']:.2e} (<= {FULL_TRACE_ATOL}); gradient {gap} "
+             f"{'ok' if ok_seq and ok_g else 'FAIL'}")
+        if not (ok_seq and ok_g):
+            failures.append(f"[dist] rank {r}: the sequence-sharded engines disagree")
+        m = res["model"]
+        ok_v = abs(m["value"] - model["value"]) / DIST_N <= FULL_TRACE_ATOL
+        ok_g, gap = _grad_gap(m["grad"], model["grad"], DIST_N)
+        _log(f"[dist] gloo rank {r}: model {_dist_line('model', m)}; nll/N {m['value'] / DIST_N:.10f} "
+             f"(unsharded {model['value'] / DIST_N:.10f}); gradient {gap} "
+             f"{'ok' if ok_v and ok_g else 'FAIL'}")
+        if not (ok_v and ok_g):
+            failures.append(f"[dist] rank {r}: the model-sharded objective disagrees")
+        for name in ("chain21", "chain12"):
+            c = res[name]
+            ok_ = c["gap"] <= FULL_TRACE_ATOL
+            _log(f"[dist] gloo rank {r}: chain on (chain {name[5]}, data {name[6]}) "
+                 f"{_dist_line(name, c)}; max |loss - unsharded| / N over chains and steps "
+                 f"{c['gap']:.2e} (<= {FULL_TRACE_ATOL}), equal bit for bit {c['equal']} "
+                 f"{'ok' if ok_ else 'FAIL'}")
+            if not ok_:
+                failures.append(f"[dist] rank {r}: the sharded train step on {name} disagrees")
+        f = res["fit"]
+        want = np.asarray(par_ends)
+        rel = np.abs(f["ends"] - want) / np.abs(want)
+        ok_ = bool(np.isfinite(f["ends"]).all() and rel.max() <= DIST_FIT_RTOL)
+        _log(f"[dist] gloo rank {r}: fit_gpar(mesh=) EEG {_dist_line('fit', f)}; float64 objective "
+             f"at the six end points {np.round(f['ends'], 4).tolist()} ([parallel] "
+             f"{np.round(want, 4).tolist()}), max rel gap {rel.max():.2e} (<= {DIST_FIT_RTOL}) "
+             f"{'ok' if ok_ else 'FAIL'}")
+        if not ok_:
+            failures.append(f"[dist] rank {r}: fit_gpar(mesh=) disagrees with the unsharded fit")
+        for name in ("seq", "model", "chain21", "chain12", "fit"):
+            acc = paths.setdefault(name, {})
+            for k, v in res[name]["launches"].items():
+                acc[k] = acc.get(k, 0) + v
+    scan = [k.name for k in _scan_kernels()]
+    need = {"seq": scan[:2] + scan[3:], "model": scan, "chain12": scan[:2] + scan[3:],
+            "fit": [k.name for k in _dense()]}
+    for name, kernels in need.items():
+        if not all(paths[name][k] > 0 for k in kernels):
+            failures.append(f"[dist] {name}: a kernel of the path did not launch: {paths[name]}")
+    _log(f"[dist] launches over the {DIST_RANKS} gloo ranks: "
+         + "; ".join(f"{name} {c}" for name, c in paths.items()))
+    return paths
+
+
+# [aux]: the run-support modules on the card.  run_with_checkpointing on
+# AUX_STEPS Adam steps (1e-2) of the chain's second output (the conditional
+# of chain_scale.py, N = 10^6, M = 32, float32 on the kernels), a checkpoint
+# every AUX_EVERY steps: stopped after AUX_EVERY steps, resumed to
+# AUX_STEPS, against an uninterrupted run (bit for bit: the kernels and the
+# float64 Gram are deterministic); stage_timer around a K3 sweep queued
+# behind three float32 products of AUX_MAT x AUX_MAT, whose seconds must
+# cover the block's device time (CUDA events), itself longer than the
+# host's time to enqueue it (so a timer that did not wait would fail);
+# load_eeg_csv on a CSV of the synthetic EEG set with a text time column and
+# one empty cell.  profiler_trace's check runs at the start (trace_check).
+AUX_STEPS, AUX_EVERY, AUX_MAT = 10, 5, 8192
+_AUX_DIR = "build/aux"
+
+
+def trace_check(failures):
+    """[aux] profiler_trace around one K3 sweep at N = 10^6 (33 columns):
+    the Chrome trace must hold its device kernels.  It runs first, before
+    any other profiler session: in a long process torch.profiler drops
+    device kernel records once earlier sessions have traced a few hundred
+    thousand launches (on an H100: 3 of the sweep's 4 kernels after 10^5,
+    none after 4 x 10^5; tools/profiler_drop.py), and by [aux] the run has
+    traced more."""
+    import json
+    import os
+    import re
+    import shutil
+
+    import torch
+
+    from gpar_at_scale_torch.ops.grad import gain_pass
+    from gpar_at_scale_torch.ops.whiten import whiten_sweep
+    from gpar_at_scale_torch.utils import profiler_trace
+
+    n = 1_000_000
+    t = torch.linspace(0.0, n / 1000.0, n, dtype=torch.float64, device=_DEV)
+    lg = _pod_lgssm(t, torch.tensor([math.log(0.5), 0.0, math.log(0.1)], dtype=torch.float64,
+                                    device=_DEV))
+    rows = gain_pass(lg.A, lg.Q, lg.R.expand(n).contiguous())[0]
+    U = torch.randn((n, M + 1), generator=torch.Generator(device=_DEV).manual_seed(0),
+                    device=_DEV)
+    trace_dir = os.path.join("build", "trace_check")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with profiler_trace(trace_dir):
+        whiten_sweep(rows, U, 3)
+        _sync(_DEV)
+    path = os.path.join(trace_dir, "trace.json")
+    events = json.load(open(path))["traceEvents"] if os.path.exists(path) else []
+    kernels = sorted({k for e in events if e.get("cat") == "kernel"
+                      for k in re.findall(r"\w+_kernel", e.get("name", ""))})
+    ok_ = "sweep_kernel" in kernels
+    _log(f"[aux] profiler_trace around a K3 sweep: {path}, {len(events)} events, device kernels "
+         f"{kernels} {'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[aux] profiler_trace wrote no trace of the kernel")
+
+
+def aux_phase(t_np, Y_np, params, failures):
+    """[aux] on the card.  Returns the launches of the checkpointed run."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.data.eeg import generate_synthetic_eeg, load_eeg_csv
+    from gpar_at_scale_torch.inference.optimize import adam_init, adam_update
+    from gpar_at_scale_torch.models.gpar import _select_pseudo_points
+    from gpar_at_scale_torch.ops.grad import gain_pass
+    from gpar_at_scale_torch.ops.whiten import whiten_sweep
+    from gpar_at_scale_torch.parallel.sharded import make_dtc_nlml
+    from gpar_at_scale_torch.utils import MetricsLogger, run_with_checkpointing, stage_timer
+
+    shutil.rmtree(_AUX_DIR, ignore_errors=True)
+    os.makedirs(_AUX_DIR)
+    f32 = torch.float32
+    t = torch.as_tensor(t_np, device=_DEV)
+    X = torch.as_tensor(Y_np[:, :1]).to(_DEV, f32)
+    y = torch.as_tensor(Y_np[:, 1]).to(_DEV, f32)
+    Z = _select_pseudo_points(X, M)
+    nlml = make_dtc_nlml()
+
+    def step_fn(state, i):
+        p = state["p"].detach().requires_grad_(True)
+        loss = nlml(p, t, X, y, Z)
+        (g,) = torch.autograd.grad(loss, p)
+        p, opt = adam_update(g, state["opt"], state["p"], DIST_LR)
+        return {"p": p, "opt": opt, "loss": state["loss"].index_fill(0, torch.tensor(i, device=_DEV),
+                                                                         loss.detach().double())}
+
+    init = {"p": params[1].clone(), "opt": adam_init(params[1]),
+            "loss": torch.zeros(AUX_STEPS, dtype=torch.float64, device=_DEV)}
+    _zero_counts()
+    ck = os.path.join(_AUX_DIR, "ckpt")
+    (first, ran1), s1, _ = _timed(lambda: run_with_checkpointing(step_fn, init, AUX_EVERY, ck,
+                                                                 checkpoint_every=AUX_EVERY))
+    (resumed, ran2), s2, _ = _timed(lambda: run_with_checkpointing(step_fn, init, AUX_STEPS, ck,
+                                                                   checkpoint_every=AUX_EVERY))
+    launches = _all_counts()
+    whole, _ = run_with_checkpointing(step_fn, init, AUX_STEPS)
+    same = all(torch.equal(a, b) for a, b in zip(
+        (resumed["p"], resumed["opt"].mu, resumed["opt"].nu, resumed["loss"]),
+        (whole["p"], whole["opt"].mu, whole["opt"].nu, whole["loss"])))
+    ok_ = same and (ran1, ran2) == (AUX_EVERY, AUX_STEPS - AUX_EVERY) and int(resumed["opt"].count) == AUX_STEPS
+    trace = (resumed["loss"] / DIST_N).cpu().numpy()
+    _log(f"[aux] run_with_checkpointing: {ran1} Adam steps in {s1:.3f} s, stopped, resumed from "
+         f"step {AUX_EVERY} for {ran2} more in {s2:.3f} s; nll/N {np.round(trace, 6).tolist()}; "
+         f"equal bit for bit to an uninterrupted run of {AUX_STEPS}: {same} {'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[aux] the resumed run differs from the uninterrupted one")
+
+    n = t.shape[0]
+    lg = _pod_lgssm(t, torch.tensor([math.log(0.5), 0.0, math.log(0.1)], dtype=torch.float64,
+                                    device=_DEV))
+    rows = gain_pass(lg.A, lg.Q, lg.R.expand(n).contiguous())[0]
+    U = torch.cat([y[:, None], X.expand(n, M)], dim=1).contiguous()
+    sweep = lambda: whiten_sweep(rows, U, 3)  # noqa: E731
+    # the device queue ahead of the sweep (float32 products of AUX_MAT^3,
+    # tens of ms) makes the device, not the host's launches, set the time
+    big = torch.ones((AUX_MAT, AUX_MAT), dtype=f32, device=_DEV) / AUX_MAT
+
+    def block():
+        for _ in range(3):
+            big @ big
+        return sweep()
+
+    event_ms = _time_ms(block, 1)
+    _sync(_DEV)
+    t0 = time.perf_counter()
+    block()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    _sync(_DEV)
+    log = MetricsLogger(path=os.path.join(_AUX_DIR, "metrics.jsonl"))
+    with stage_timer("K3 sweep", logger=log) as h:
+        h["sync"] = block()
+    log.close()
+    ok_ = h["seconds"] * 1e3 >= 0.9 * event_ms > enqueue_ms and log.records[0]["name"] == "K3 sweep"
+    _log(f"[aux] stage_timer around a K3 sweep ({M + 1} columns, N={n:,}) behind 3 products of "
+         f"{AUX_MAT}^2: {h['seconds'] * 1e3:.3f} ms against {event_ms:.3f} ms of CUDA events and "
+         f"{enqueue_ms:.3f} ms to enqueue it {'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[aux] stage_timer did not count the device work")
+
+    ds = generate_synthetic_eeg(seed=0)
+    csv = os.path.join(_AUX_DIR, "eeg.csv")
+    with open(csv, "w") as fh:
+        fh.write("time," + ",".join(ds.channels) + "\n")
+        for i, row in enumerate(ds.Y):
+            cells = [repr(float(v)) for v in row]
+            if i == 10:
+                cells[5] = ""  # F1 missing at one time point
+            fh.write(f"0:00:{i:03d}," + ",".join(cells) + "\n")
+    loaded = load_eeg_csv(csv)
+    nan = np.isnan(loaded.Y)
+    ok_ = (loaded.Y.shape == ds.Y.shape and nan.sum() == 1 and nan[10, 5]
+           and np.array_equal(loaded.Y[~nan], ds.Y[~nan]))
+    _log(f"[aux] load_eeg_csv on the synthetic EEG set with a text time column and an empty F1 "
+         f"cell: shape {loaded.Y.shape}, NaN at {np.argwhere(nan).tolist()}, the rest exact "
+         f"{'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[aux] load_eeg_csv did not read the CSV with NaN in its empty cell")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2896,6 +3420,8 @@ def main(argv=None):
     for i, p in enumerate(params):
         _log(f"[data] log-params y{i + 1:02d}: {np.round(p.cpu().numpy(), 6).tolist()}")
 
+    # [aux]'s trace check, before any other profiler session
+    trace_check(failures)
     # 2. kernels against their plain versions
     records = check_kernels(t, Y, params, M, failures)
     check_kernel_edges(failures)
@@ -2956,7 +3482,8 @@ def main(argv=None):
     # 8. the dense path's main path: the EEG example through K6a-c
     eeg_launches, seq_ends, eeg_smse_fz = eeg_phase(failures)
     # 10. the EEG chain's conditionals fitted in parallel under "on" and "off"
-    eeg_par_launches = eeg_parallel(seq_ends, failures)
+    par_ends = []
+    eeg_par_launches = eeg_parallel(seq_ends, failures, par_ends)
     for key, a, b in zip(("K6a", "K6b", "K6c"), eeg_launches, eeg_par_launches):
         records[key]["launches"] = a
         records[key]["launches_by_path"] = {"eeg": a, "parallel": b}
@@ -2977,6 +3504,11 @@ def main(argv=None):
         ("segmented", segmented_phase(args.seed, failures)),
         ("mixed-bwd", mixed_bwd_phase(args.seed, failures)),
     )
+    # the parallel layer and the run-support modules
+    dist = dist_phase(t_np, Y_np, params, par_ends, failures)
+    chain = {k: dist["chain21"][k] + dist["chain12"][k] for k in dist["chain21"]}
+    new_paths += (("dist-seq", dist["seq"]), ("dist-model", dist["model"]), ("dist-chain", chain),
+                  ("dist-fit", dist["fit"]), ("aux", aux_phase(t_np, Y_np, params, failures)))
     from gpar_at_scale_torch.ops import KERNELS
 
     for key, k in zip(("K1", "K2", "K3", "K4a", "K4b", "K6a", "K6b", "K6c"), KERNELS):

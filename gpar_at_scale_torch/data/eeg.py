@@ -1,8 +1,9 @@
 """EEG multi-output dataset: CSV loader and synthetic generator.
 
 A copy of ``gpar_at_scale_tpu/data/eeg.py`` in numpy (the port imports
-nothing of the JAX package): the same channels, chain order and split, and
-the same numbers from the same seed.  The real recordings of the EEG
+nothing of the JAX package; CSVs go through ``data/native_io.py``): the
+same channels, chain order and split, and the same numbers from the same
+seed.  The real recordings of the EEG
 example are not in the repository, so the synthetic generator is what runs:
 7 channels (F3, F4, F5, F6, FZ, F1, F2) x 256 points at 256 Hz, later
 channels driven by earlier ones.  F3-F6 are observed for all 256 points;
@@ -15,6 +16,8 @@ import os
 from typing import NamedTuple, Sequence
 
 import numpy as np
+
+from gpar_at_scale_torch.data.native_io import read_csv
 
 CHANNELS = ("F3", "F4", "F5", "F6", "FZ", "F1", "F2")
 # chain: fully-observed channels first, then the predicted ones
@@ -47,10 +50,9 @@ class EEGDataset(NamedTuple):
 
 def load_eeg_csv(path: str) -> EEGDataset:
     """Load an EEG CSV whose header row names the channels (comma
-    separated, one row per time point at 256 Hz)."""
-    with open(path) as f:
-        header = [h.strip().strip('"') for h in f.readline().split(",")]
-    data = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    separated, one row per time point at 256 Hz), through ``read_csv``: a
+    text or empty cell reads as NaN, as in the JAX package."""
+    data, header = read_csv(path)
     cols = {name: header.index(name) for name in CHAIN_ORDER}
     Y = np.stack([data[:, cols[c]] for c in CHAIN_ORDER], axis=1)
     t = np.arange(1, Y.shape[0] + 1) / 256.0

@@ -35,7 +35,9 @@ hyperparameters:
   row, in the working precision.
 * a callable ``(lgssm, Y) -> FilterResult`` -- e.g. the sequential
   ``ssm.kalman.kalman_filter`` or the associative-scan
-  ``ssm.pkalman.parallel_filter``; autograd.
+  ``ssm.pkalman.parallel_filter``; autograd.  A callable with a ``gram``
+  method forms the Gram through it: the time-sharded filter
+  (``parallel/seqshard.py::ShardedFilter``).
 * ``None`` -- auto: ``"dense"`` when (time_kernel, t) are given and
   N <= DENSE_N_MAX, the kernel path above that.  The JAX package picks its
   XLA ``"blocked"`` engine there because its TPU compile service stalled on
@@ -193,6 +195,9 @@ def _scan_gram(filter_fn, lgssm: LGSSM, batch):
         from gpar_at_scale_torch.ssm.pkalman import parallel_filter
 
         filter_fn = parallel_filter
+    gram = getattr(filter_fn, "gram", None)
+    if gram is not None:  # an engine with its own Gram (parallel/seqshard.py)
+        return gram(lgssm, batch)
     res = (filter_fn or kalman_filter)(lgssm, batch)
     W = (res.v / torch.sqrt(res.S)[:, None]).double()
     return W.T @ W, torch.log(res.S).double().sum()
@@ -225,7 +230,11 @@ def dtc_objective(
         out_kernel, V, Z, time_lgssm, y, mean, uu_ridge, filter_fn,
         time_kernel=time_kernel, t=t,
     )
-    n = y.shape[0]
+    return dtc_bound(inter, y.shape[0])
+
+
+def dtc_bound(inter: DTCIntermediates, n: int):
+    """The P-form DTC bound of n observations from its Gram intermediates."""
     Kuu_r = inter.L_uu @ inter.L_uu.T
     L_P = torch.linalg.cholesky(inter.Gb + Kuu_r)
     wp = solve_lower(L_P, inter.g)

@@ -188,3 +188,34 @@ def multi_start(fun: Callable, x0s, *, method: str = "lbfgs", **kwargs) -> OptRe
     finals = torch.stack([r.value.double() for r in results])
     finals = torch.where(torch.isnan(finals), torch.inf, finals)
     return results[int(torch.argmin(finals))]
+
+
+class AdamState(NamedTuple):
+    """Adam's state for a batch of parameter vectors: the moment estimates
+    (in the parameters' shape) and the step count."""
+
+    mu: torch.Tensor
+    nu: torch.Tensor
+    count: torch.Tensor  # () int64
+
+
+def adam_init(params) -> AdamState:
+    params = torch.as_tensor(params)
+    return AdamState(mu=torch.zeros_like(params), nu=torch.zeros_like(params),
+                     count=torch.zeros((), dtype=torch.int64))
+
+
+def adam_update(grads, state: AdamState, params, learning_rate: float = 1e-2):
+    """One Adam step as a function: (new params, new state).  The update of
+    ``torch.optim.Adam`` (``minimize_adam``'s optimizer), in its order of
+    operations, with optax's defaults (beta 0.9 / 0.999, eps 1e-8);
+    elementwise, so a (C, k) batch of parameter vectors steps C independent
+    chains."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    count = state.count + 1
+    k = int(count)
+    mu = state.mu.lerp(grads, 1.0 - b1)
+    nu = state.nu * b2 + (1.0 - b2) * grads * grads
+    step_size = learning_rate / (1.0 - b1**k)
+    denom = nu.sqrt() / (1.0 - b2**k) ** 0.5 + eps
+    return params - step_size * (mu / denom), AdamState(mu=mu, nu=nu, count=count)

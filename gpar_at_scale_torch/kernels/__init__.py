@@ -8,7 +8,7 @@ from gpar_at_scale_torch.kernels.base import (
     sq_dist,
 )
 from gpar_at_scale_torch.kernels.gpar import gpar_kernel, time_kernel_only
-from gpar_at_scale_torch.kernels.stationary import EQ, RQ, Matern12, Matern32, Matern52
+from gpar_at_scale_torch.kernels.stationary import EQ, RQ, Matern12, Matern32, Matern52, scaled
 
 __all__ = [
     "Kernel",
@@ -25,4 +25,5 @@ __all__ = [
     "RQ",
     "gpar_kernel",
     "time_kernel_only",
+    "scaled",
 ]

@@ -73,3 +73,12 @@ class RQ(StationaryKernel):
 
     def _rho_r2(self, r2):
         return (1.0 + r2 / (2.0 * self.alpha)) ** (-self.alpha)
+
+
+def scaled(base_cls, lengthscale, variance_sq_root=None, *, variance=None, **extra):
+    """Stheno-style ``kernel(k; l=l, s=s)`` constructor: ``base_cls`` with
+    the given lengthscale and either ``variance`` or ``variance_sq_root``
+    (sigma, squared here), as in the JAX package."""
+    if variance is None:
+        variance = variance_sq_root**2
+    return base_cls(lengthscale=lengthscale, variance=variance, **extra)

@@ -20,6 +20,7 @@ package's vmapped fit of the conditionals, gives the same fits here
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -368,12 +369,36 @@ def fit_conditional(
     )
 
 
+def _moved(obj, device):
+    """``obj`` with every tensor in it (dataclass fields, tuples, lists)
+    moved to ``device``."""
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _moved(getattr(obj, f.name), device)
+                                           for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_moved(v, device) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_moved(v, device) for v in obj)
+    return obj
+
+
 def fit_conditionals_parallel(
-    generator, t, Y, cfg: GPARConfig, init_params: Optional[Sequence] = None, *, device=None
+    generator, t, Y, cfg: GPARConfig, init_params: Optional[Sequence] = None, *,
+    mesh=None, mesh_axis: str = "chain", device=None,
 ) -> List[FittedConditional]:
     """Fit conditionals 2..P, each on its own data: conditional i on
     (t, y_1..y_{i-1}) -> y_i.  ``init_params``: one entry (or None) per
-    conditional; ``generator`` draws the others, in chain order.
+    conditional; ``generator`` draws the others, in chain order, before any
+    fit starts.
+
+    ``mesh`` (``parallel.mesh.make_mesh``): when the size of its axis
+    ``mesh_axis`` divides P - 1, rank r of that axis fits the r-th run of
+    (P - 1) / size conditionals, and the fits are all-gathered, so every
+    rank returns the same list; every rank draws all the starts, so each fit
+    starts where the unsharded one does.  Otherwise the fit runs unsharded
+    on every rank, as in the JAX package.
 
     The JAX package vmaps the conditionals over features zero-padded to
     width P - 1, with the pseudo-points at one row stride for all.  The
@@ -388,10 +413,26 @@ def fit_conditionals_parallel(
     Y = _as(Y, cfg, device)
     P = Y.shape[1]
     init_params = list(init_params) if init_params is not None else [None] * (P - 1)
-    return [
-        fit_conditional(generator, t, Y[:, :i], Y[:, i], cfg, init_params[i - 1], device=device)
-        for i in range(1, P)
-    ]
+    k = 6 if cfg.separate_noise and cfg.backend == "scaled" else 5
+    starts = [_params(init_params[i - 1], k, generator, cfg, device) for i in range(1, P)]
+
+    def fit(i):
+        return fit_conditional(None, t, Y[:, :i], Y[:, i], cfg, starts[i - 1], device=device)
+
+    group = None
+    if mesh is not None:
+        from gpar_at_scale_torch.parallel.mesh import axis_group, axis_rank, axis_size
+
+        size = axis_size(mesh, mesh_axis)
+        if size > 1 and (P - 1) % size == 0:
+            group, rank = axis_group(mesh, mesh_axis), axis_rank(mesh, mesh_axis)
+    if group is None:
+        return [fit(i) for i in range(1, P)]
+    from gpar_at_scale_torch.parallel.distributed import all_gather_object
+
+    per = (P - 1) // size
+    mine = [_moved(fit(i), "cpu") for i in range(1 + rank * per, 1 + (rank + 1) * per)]
+    return [_moved(c, device) for part in all_gather_object(mine, group) for c in part]
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +475,8 @@ def fit_gpar(
     init_params: Optional[Sequence] = None,
     *,
     parallel: bool = False,
+    mesh=None,
+    mesh_axis: str = "chain",
     device=None,
 ) -> FittedGPAR:
     """Fit the whole chain: output 1 on time, output i on
@@ -442,11 +485,15 @@ def fit_gpar(
     None.  ``parallel`` is the JAX package's switch to its vmapped fit of
     the conditionals, whose fits are the sequential ones
     (``fit_conditionals_parallel``), so both settings fit the same way here.
-    Runs on the card unless ``device`` says otherwise."""
+    ``mesh`` and ``mesh_axis`` split the conditionals over a mesh axis
+    (``fit_conditionals_parallel``; the first output is fitted on every
+    rank), whatever ``parallel`` says.  Runs on the card unless ``device``
+    says otherwise."""
     device = resolve_device(device)
     Y = _as(Y, cfg, device)
     P = Y.shape[1]
     init_params = list(init_params) if init_params is not None else [None] * P
     first = fit_first_output(generator, t, Y[:, 0], cfg, init_params[0], device=device)
-    conditionals = fit_conditionals_parallel(generator, t, Y, cfg, init_params[1:], device=device)
+    conditionals = fit_conditionals_parallel(generator, t, Y, cfg, init_params[1:], mesh=mesh,
+                                             mesh_axis=mesh_axis, device=device)
     return FittedGPAR(first=first, conditionals=conditionals)

@@ -127,11 +127,12 @@ def gain_pass(A, Q, R):
     return gain_rows(A, S, K), S, K, P
 
 
-def whiten_bwd_mixed_chunk(A, U, Fk, gains):
+def whiten_bwd_mixed_chunk(A, U, Fk, gains, ct_chunk=None):
     """The kernel route of ``ssm.blocked_grad.whiten_bwd_mixed_chunk``:
     (ct_A, ct_Q, ct_R, ct_U) of the mixed columns U F_k (Fk (B, K)) from
     one K3 sweep with means on the shared ``gains`` (``gain_pass``) and one
-    K-column suffix scan with W = 0 on K4a/K4b.  float32, H = e1."""
+    K-column suffix scan with W = 0 on K4a/K4b, scored at the chunk's Gram
+    cotangent ``ct_chunk`` (K, K) (-I if None).  float32, H = e1."""
     rows, S, K, P = gains
     Fk = Fk.to(_F32)
     _, alpha, m = whiten_sweep(rows, (U @ Fk).contiguous(), A.shape[-1], want_means=True)
@@ -139,8 +140,9 @@ def whiten_bwd_mixed_chunk(A, U, Fk, gains):
     H = _e1(A.shape[-1], A)
     C, b, W = whiten_bwd_elements(A, H, aux)
     r, Nmat = suffix_scan(C, b, torch.zeros_like(W))
-    minus_eye = -torch.eye(Fk.shape[1], dtype=_F32, device=A.device)
-    ct_A, ct_Q, ct_R, ct_Ut = whiten_bwd_scores(A, H, aux, r, Nmat, minus_eye, 0.0)
+    if ct_chunk is None:
+        ct_chunk = -torch.eye(Fk.shape[1], dtype=_F32, device=A.device)
+    ct_A, ct_Q, ct_R, ct_Ut = whiten_bwd_scores(A, H, aux, r, Nmat, ct_chunk, 0.0)
     return ct_A, ct_Q, ct_R, ct_Ut @ Fk.T
 
 

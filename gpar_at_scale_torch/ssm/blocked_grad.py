@@ -154,19 +154,20 @@ def cotangent_factor(ct_G):
     return np.linalg.cholesky(neg + ridge * np.eye(b))
 
 
-def whiten_bwd_mixed_chunk(A, Q, R, H, U, Fk):
+def whiten_bwd_mixed_chunk(A, Q, R, H, U, Fk, ct_chunk=None):
     """The partial cotangents (ct_A, ct_Q, ct_R, ct_U) of one chunk of mixed
     columns U F_k, F_k (B, K) columns of ``cotangent_factor``'s F: one
     K-column filter and adjoint scan (W = 0: only r is needed), scored at
-    ct_G = -I, ct_ld = 0.  Summed over the chunks of F and with
+    ct_G = ``ct_chunk`` (K, K) (-I if None, the DTC bound's), ct_ld = 0.  Summed over the chunks of F and with
     ``whiten_bwd_ld_part``, they are ``whiten_bwd``'s cotangents; every array
     is K columns wide but ct_U (N, B)."""
     Fk = torch.as_tensor(Fk, device=A.device).to(A.dtype)
     _, aux = _filter_aux(LGSSM(A=A, Q=Q, H=H, R=R), U @ Fk)
     C, b, W = whiten_bwd_elements(A, H, aux)
     _, r, Nmat = blocked_suffix_scan(C, b, torch.zeros_like(W))
-    minus_eye = -torch.eye(Fk.shape[1], dtype=A.dtype, device=A.device)
-    ct_A, ct_Q, ct_R, ct_Ut = whiten_bwd_scores(A, H, aux, r, Nmat, minus_eye, 0.0)
+    if ct_chunk is None:
+        ct_chunk = -torch.eye(Fk.shape[1], dtype=A.dtype, device=A.device)
+    ct_A, ct_Q, ct_R, ct_Ut = whiten_bwd_scores(A, H, aux, r, Nmat, ct_chunk, 0.0)
     return ct_A, ct_Q, ct_R, ct_Ut @ Fk.T
 
 

@@ -2952,3 +2952,336 @@ def test_mixed_backward_matches_jax(chunk, mixed_refs):
         grads.append([x.grad for x in leaves])
     for a, b in zip(*grads):
         _near(a, b, 2e-5)
+
+
+# ---------------------------------------------------------------------------
+# The run-support modules: data/native_io.py, utils/{checkpoint,observability,
+# resilience}.py, kernels.scaled
+# ---------------------------------------------------------------------------
+
+_BAD_CSVS = {
+    # tests/test_vi_native.py's bad cells: an empty and a text cell
+    "bad_cells": "x,y\n1.5,2.5\n,3.5\nfoo,4.5\n",
+    # an EEG CSV with a text time column, one empty channel cell, a short
+    # row, a blank line and quoted header names
+    "eeg_text_time": (
+        '"time",F3,F4,F5,F6,FZ,F1,F2\n'
+        "0:00,1,2,3,4,5,6,7\n"
+        "0:01,1.5,,3.5,4.5,5.5,6.5,7.5\n"
+        "\n"
+        "0:02,2,3,4\n"
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_BAD_CSVS))
+def test_read_csv_matches_jax_python_reader(name, tmp_path):
+    """data/native_io.py::read_csv against the JAX package's Python reader
+    (``_read_csv_python``, not its native parser, which shifts a row after
+    a text cell): the same array, NaN where a cell is text or empty or a
+    row is short, the same names; the port's load_eeg_csv reads the EEG
+    file with NaN in those places instead of raising."""
+    from gpar_at_scale_tpu.data.native_io import _read_csv_python
+    from gpar_at_scale_torch.data import eeg as teeg
+    from gpar_at_scale_torch.data.native_io import native_available, read_csv
+
+    path = tmp_path / f"{name}.csv"
+    path.write_text(_BAD_CSVS[name])
+    got, names = read_csv(str(path))
+    want, want_names = _read_csv_python(str(path))
+    assert names == want_names and got.shape == want.shape and got.dtype == np.float64
+    np.testing.assert_array_equal(got, want)  # NaN in the same places
+    assert not native_available()
+    if name == "eeg_text_time":
+        assert np.isnan(got[:, 0]).all() and np.isnan(got[1, 2]) and np.isnan(got[2, 5:]).all()
+        ds = teeg.load_eeg_csv(str(path))
+        assert ds.Y.shape == (3, 7) and np.isnan(ds.Y[1, 1]) and np.isnan(ds.Y[2, 3:]).all()
+        np.testing.assert_array_equal(ds.Y[0], np.arange(1.0, 8.0))
+        np.testing.assert_array_equal(ds.t, np.arange(1, 4) / 256.0)
+    else:
+        assert np.isnan(got[1, 0]) and np.isnan(got[2, 0])
+        np.testing.assert_array_equal(got[:, 1], [2.5, 3.5, 4.5])
+
+
+def test_checkpoint_roundtrip_and_latest_step(tmp_path):
+    """tests/test_aux.py's round trip on the port: two steps saved,
+    ``latest_step`` the higher one, each restored into ``like``'s
+    structure (a named tuple too), devices and dtypes; no ``.tmp`` is
+    left behind, and a step that exists is not overwritten when asked not
+    to be."""
+    from gpar_at_scale_torch.inference.optimize import AdamState
+    from gpar_at_scale_torch.utils import latest_step, restore_checkpoint, save_checkpoint
+
+    tree = {"params": torch.arange(5.0),
+            "opt": AdamState(mu=torch.ones(2, 3), nu=torch.zeros(2, 3), count=torch.tensor(7))}
+    d = str(tmp_path / "ckpt")
+    assert latest_step(d) is None
+    save_checkpoint(d, 3, tree)
+    plus = {"params": tree["params"] + 1,
+            "opt": AdamState(mu=tree["opt"].mu + 1, nu=tree["opt"].nu, count=tree["opt"].count + 1)}
+    path = save_checkpoint(d, 10, plus)
+    assert path.endswith("step_0000000010") and latest_step(d) == 10
+    assert not any(p.name.endswith(".tmp") for p in (tmp_path / "ckpt").iterdir())
+    like = {"params": torch.zeros(5, dtype=F64),
+            "opt": AdamState(mu=torch.zeros(2, 3), nu=torch.zeros(2, 3), count=torch.tensor(0))}
+    restored = restore_checkpoint(d, like=like)
+    assert isinstance(restored["opt"], AdamState) and restored["params"].dtype == F64
+    _close(restored["params"], np.arange(5.0) + 1, rtol=0)
+    assert int(restored["opt"].count) == 8
+    _close(restore_checkpoint(d, step=3)["params"], np.arange(5.0), rtol=0)
+    with pytest.raises(FileExistsError):
+        save_checkpoint(d, 3, tree, overwrite=False)
+    with pytest.raises(FileNotFoundError):
+        restore_checkpoint(str(tmp_path / "none"))
+
+
+def test_metrics_logger_and_stage_timer(tmp_path):
+    """tests/test_aux.py's MetricsLogger and stage_timer cases on the port,
+    with the same JSONL records; throughput; profiler_trace writes a
+    Chrome trace file and does nothing without a directory."""
+    import json
+
+    from gpar_at_scale_torch.utils import MetricsLogger, profiler_trace, stage_timer, throughput
+
+    path = str(tmp_path / "metrics.jsonl")
+    log = MetricsLogger(path=path)
+    log.record("fit", step=1, nlml=12.5)
+    log.record("fit", step=2, nlml=11.0)
+    log.close()
+    lines = [json.loads(line) for line in open(path)]
+    assert [r["step"] for r in lines] == [1, 2] and lines[1]["nlml"] == 11.0
+    assert set(lines[0]) == {"event", "time", "step", "nlml"} and lines[0]["event"] == "fit"
+    log = MetricsLogger()
+    with stage_timer("matmul", logger=log) as h:
+        x = torch.ones((200, 200))
+        h["sync"] = x @ x
+    assert log.records[0]["name"] == "matmul" and log.records[0]["seconds"] > 0
+    assert h["seconds"] == log.records[0]["seconds"]
+    assert throughput(1000, 2.0, "obs")["obs_per_s"] == 500
+    with profiler_trace(str(tmp_path / "trace")):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    with profiler_trace(None):
+        pass
+
+
+def test_run_with_checkpointing_resumes(tmp_path):
+    """tests/test_aux.py's resume case on the port: 7 steps with a
+    checkpoint every 3, then a restart to 12 runs only the 5 left; and 10
+    Adam steps interrupted after 5 end where an uninterrupted run does,
+    bit for bit."""
+    from gpar_at_scale_torch.inference.optimize import adam_init, adam_update
+    from gpar_at_scale_torch.utils import run_with_checkpointing
+
+    d = str(tmp_path / "ck")
+    init = {"x": torch.tensor(0.0)}
+    state, ran = run_with_checkpointing(lambda s, i: {"x": s["x"] + 1.0}, init, 7, d,
+                                        checkpoint_every=3)
+    assert float(state["x"]) == 7.0 and ran == 7
+    state2, ran2 = run_with_checkpointing(lambda s, i: {"x": s["x"] + 1.0}, init, 12, d,
+                                          checkpoint_every=3)
+    assert float(state2["x"]) == 12.0 and ran2 == 5
+
+    target = torch.tensor([0.3, -1.0, 2.0], dtype=F64)
+
+    def adam_step(s, i):
+        p, opt = s
+        return adam_update(2.0 * (p - target), opt, p, 0.1)
+
+    start = (torch.zeros(3, dtype=F64), adam_init(torch.zeros(3, dtype=F64)))
+    whole, _ = run_with_checkpointing(adam_step, start, 10)
+    d2 = str(tmp_path / "adam")
+    run_with_checkpointing(adam_step, start, 5, d2, checkpoint_every=5)
+    resumed, ran = run_with_checkpointing(adam_step, start, 10, d2, checkpoint_every=5)
+    assert ran == 5 and int(resumed[1].count) == 10
+    _close(resumed[0], _np(whole[0]), rtol=0)
+
+
+def test_scaled_matches_jax(rng):
+    """kernels.scaled against the JAX function: by sigma and by variance,
+    with an extra argument (RQ's alpha)."""
+    x, z = rng.normal(size=(6, 2)), rng.normal(size=(5, 2))
+    for name, kw in (("Matern52", {}), ("RQ", {"alpha": 2.0})):
+        jf, tf = _family(name)
+        for args, kwargs in (((0.7, 1.3), {}), ((0.7,), {"variance": 2.1})):
+            kj = jk.scaled(jf, *args, **kwargs, **kw)
+            kt = tk.scaled(tf, *args, **kwargs, **kw)
+            _close(kt(_t(x), _t(z)), kj(jnp.asarray(x), jnp.asarray(z)))
+
+
+def test_initialize_distributed_without_launcher(monkeypatch):
+    """initialize_distributed() with no launcher and no address does
+    nothing and returns False, twice."""
+    import torch.distributed as dist
+
+    from gpar_at_scale_torch.parallel import initialize_distributed
+
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    assert initialize_distributed() is False
+    assert initialize_distributed() is False
+    assert not dist.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# parallel/: the sharded engines over 4 gloo ranks against the JAX package's
+# sharded functions on a 4-device mesh.  The ranks run once for every case
+# below (``dist_results``; their bodies are tests/_torch_ranks.py), and so
+# do the JAX references, in a fresh process of their own
+# (tests/_jax_dist_refs.py): this worker already holds the compile state of
+# every earlier case, and XLA:CPU crashes at a position in a long process
+# (gpar_tpu_testenv.py).
+# ---------------------------------------------------------------------------
+
+_SEQ_NS = (37, 130)  # spans of 10/9/9/9 and 33/33/32/32 steps on 4 ranks
+_SEQ_PARAMS = (np.log(0.7), np.log(1.3), np.log(0.1))
+
+
+def _dist_case():
+    """The inputs of every parallel case, numpy, from fixed seeds."""
+    case = {"seq_ns": _SEQ_NS, "seq_params": np.asarray(_SEQ_PARAMS)}
+    for n in _SEQ_NS:
+        rng = np.random.default_rng(n)
+        case[f"seq_t{n}"] = np.sort(rng.uniform(0.0, 3.0, n))
+        case[f"seq_Y{n}"] = rng.normal(size=(n, 3))
+    rng = np.random.default_rng(1)  # tests/test_modelshard.py's problem, n = 64, M = 8
+    n, m = 64, 8
+    t = np.sort(rng.uniform(0, 6, size=n))
+    V = rng.normal(size=(n, 2))
+    case.update(model_t=t, model_V=V, model_y=np.sin(t) + 0.3 * rng.normal(size=n),
+                model_Z=V[np.linspace(0, n - 1, m).astype(int)],
+                model_params=_np(tparams.pack_gpar(*map(_t, (0.7, 1.05, 0.9, 1.15, 0.3)))))
+    rng = np.random.default_rng(2)  # tests/test_parallel.py's problem, n = 32, M = 6
+    X = rng.normal(size=(32, 2))
+    case.update(train_t=np.sort(rng.uniform(0, 4, size=32)), train_X=X,
+                train_y=rng.normal(size=32), train_Z=X[:6],
+                train_params=0.1 * np.random.default_rng(3).normal(size=(8, 5)))
+    t_fit, Y_fit, _, _, _ = make_chain_data(40, 50, 5, np.random.default_rng(5))
+    case.update(fit_t=t_fit, fit_Y=Y_fit)
+    return case
+
+
+@pytest.fixture(scope="module")
+def dist_results(tmp_path_factory):
+    """(case, the 4 ranks' results, the JAX package's references)."""
+    import multiprocessing
+
+    from _jax_dist_refs import references
+    from _torch_ranks import body
+
+    from gpar_at_scale_torch.parallel.launch import run_ranks
+
+    case = _dist_case()
+    store = tmp_path_factory.mktemp("gloo") / "store"
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        pending = pool.apply_async(references, (case,))
+        ranks = run_ranks(body, 4, case, init_file=str(store), backend="gloo", threads=1)
+        refs = pending.get(timeout=600)
+    return case, ranks, refs
+
+
+@pytest.mark.parametrize("n", _SEQ_NS)
+def test_sharded_filter_matches_jax(n, dist_results):
+    """make_sharded_filter over 4 gloo ranks (uneven spans, float64, 3
+    columns) against the JAX package's on a 4-device mesh (which pads the
+    tail instead): filtered moments, S, innovations and ll within 1e-9 of
+    each array's largest magnitude; rank 3 returns rank 0's result."""
+    _, ranks, refs = dist_results
+    got, want = ranks[0]["seq"][n], refs["seq"][n]
+    for key in ("m", "P", "S", "v", "ll"):
+        _near(got[key], want[key], 1e-9)
+        np.testing.assert_array_equal(ranks[3]["seq"][n][key], got[key])
+
+
+@pytest.mark.parametrize("n", _SEQ_NS)
+def test_sharded_smoother_matches_jax(n, dist_results):
+    """make_sharded_smooth over 4 gloo ranks against the JAX package's:
+    smoothed mean, variance, state moments and ll within 1e-9 of each
+    array's largest magnitude."""
+    _, ranks, refs = dist_results
+    got, want = ranks[0]["seq"][n], refs["seq"][n]
+    for key in ("mean", "var", "ms", "Ps", "sll"):
+        _near(got[key], want[key], 1e-9)
+
+
+@pytest.mark.parametrize("n", _SEQ_NS)
+def test_sharded_logpdf_gradient_matches_jax(n, dist_results):
+    """make_sharded_logpdf and its gradient in (log l, log variance, log
+    noise) over 4 gloo ranks (the closed-form backward with the suffix scan
+    split across the ranks) against jax.value_and_grad of the JAX
+    package's: 1e-9 relative."""
+    _, ranks, refs = dist_results
+    got, want = ranks[0]["seq"][n], refs["seq"][n]
+    _close(got["lp"], want["lp"], rtol=1e-9)
+    _close(got["grad"], want["grad"], rtol=1e-9)
+    np.testing.assert_array_equal(ranks[2]["seq"][n]["grad"], got["grad"])
+
+
+def test_modelsharded_objective_and_gradient_match_jax(dist_results):
+    """make_modelsharded_nlml over a 4-rank "model" axis (M = 8, two
+    pseudo-points a rank) and its gradient (the mixed-column backward, the
+    ranks' columns as chunks) against the JAX package's on a 4-device mesh
+    (tests/test_modelshard.py's problem): 1e-8 relative; an M the axis
+    does not divide raises ValueError."""
+    _, ranks, refs = dist_results
+    got = ranks[0]["model"]
+    _close(got["value"], refs["model"]["value"], rtol=1e-8)
+    _close(got["grad"], refs["model"]["grad"], rtol=1e-8)
+    np.testing.assert_array_equal(ranks[1]["model"]["grad"], got["grad"])
+    assert all(r["model"]["indivisible_raises"] for r in ranks)
+
+
+def test_sharded_train_step_matches_jax(dist_results):
+    """make_sharded_train_step on a (chain 2, data 2) mesh of 4 gloo ranks
+    (each rank 4 chains and half of the time axis: the Gram through the
+    time-sharded filter), 2 Adam steps of 8 chains, float64, against the
+    JAX package's step on a (2, 2) mesh: every chain's losses and the
+    final parameters within 1e-8 relative."""
+    _, ranks, refs = dist_results
+    got = [r["train"] for r in ranks]
+    _close(got[0]["losses"], refs["train"]["losses"], rtol=1e-8)
+    params = np.concatenate([got[0]["params"], got[2]["params"]])  # chain ranks 0 and 1
+    _close(params, refs["train"]["params"], rtol=1e-8, atol=1e-12)
+    np.testing.assert_array_equal(got[1]["params"], got[0]["params"])  # data ranks agree
+
+
+def test_fit_gpar_mesh_matches_unsharded(dist_results):
+    """fit_gpar(mesh=) with the 4 conditionals of a 5-output chain split
+    over a chain axis of 2 ranks (N = 40, M = 8, 3 Adam steps, float64,
+    starts drawn from one generator): every rank returns the unsharded
+    fit's parameters and q(u), bit for bit (the unsharded fit is held to
+    the JAX package by test_parallel_fit_matches_jax)."""
+    _, ranks, _ = dist_results
+    assert all(r["fit"]["same"] and r["fit"]["count"] == 4 for r in ranks)
+
+
+_UNSHARDED = ("filter", "smooth", "logpdf", "decorrelate_f32", "smooth_f32", "logpdf_f32",
+              "gram_f32", "modelshard")
+
+
+@pytest.mark.parametrize("name", _UNSHARDED)
+def test_sharded_at_mesh_size_one_is_unsharded(name, dist_results):
+    """On an axis of one rank each sharded function equals the port's
+    unsharded engine bit for bit (ranks of a (chain 4, data 1) mesh): the
+    filter, smoother and logpdf with its gradient against the blocked
+    engine (float64); decorrelate, smoother, logpdf and the Gram against
+    the kernel path's ``decorrelate_blocked``, ``pallas_smooth``,
+    ``lgssm_loglik`` and ``whiten_gram`` (float32, plain versions); the
+    model-sharded bound against ``dtc_objective``."""
+    _, ranks, _ = dist_results
+    assert all(r["unsharded"][name] for r in ranks)
+
+
+def test_sharded_forward_raises_on_grad(dist_results):
+    """The sharded filter, decorrelate and smoother on the kernel route
+    (float32) raise when an input requires grad: their moments come from
+    the kernels and the collectives and have no backward."""
+    _, ranks, _ = dist_results
+    assert all(r["guard"] for r in ranks)
+
+
+def test_make_mesh_sizes_must_match_the_world(dist_results):
+    """make_mesh over 4 ranks: axis sizes whose product is not the world
+    size raise ValueError (as the JAX make_mesh does for its devices)."""
+    _, ranks, _ = dist_results
+    assert all(r["sizes_raise"] for r in ranks)
