@@ -37,7 +37,8 @@ Phases, each of which fails the run:
 7. full-N -- outputs 1 and 2 of that run at N = 1e6 against the float64
    blocked engine on the same inputs: the gradient at the start, and 10
    float64 Adam steps beside the training run's nll/N trace;
-8. eeg (the dense path's main path) -- the EEG example (``examples/eeg.py``,
+8. eeg (the dense path's main path) -- the EEG example (the port's
+   ``gpar_at_scale_torch/examples/eeg.py``, its ``run_igp`` and ``run``,
    data from ``data/eeg.py``, seed 0) in float32 with
    ``engine.pallas_dense = "on"``: IGP, exact and scaled GPAR for FZ, F1,
    F2 (L-BFGS, at most 150 steps, the example's starts), the 100 test times
@@ -46,10 +47,14 @@ Phases, each of which fails the run:
    conditional's objective and gradient at the start against float64
    ``torch.linalg``, and the same fits under "off" (the conditionals in
    float64, the example's own precision), SMSE beside;
-9. eeg-bench -- ``bench.py``'s pipeline (50 Adam steps on the DTC bound,
-   q(u), one predictive of 100 points) under "on" and "off": median seconds
-   per pipeline and per request (200 sequential requests), and one traced
-   pipeline's device busy share each;
+9. eeg-bench -- ``bench.py``'s pipeline (the port's
+   ``gpar_at_scale_torch/benchmarks/bench.py``: 50 Adam steps on the DTC
+   bound, q(u), one predictive of 100 points) under "on" and "off": median
+   seconds per pipeline and per request (200 sequential requests), one
+   traced pipeline's device busy share each; then the port's bench.py per
+   mode, its JSON line, and batched serving (200 requests in one
+   ``predict_scaled_batch``, 8 rounds, obs/s) held against the 200
+   sequential requests, one K6a launch per batched request under "on";
 10. parallel -- ``fit_gpar(parallel=True)`` on the chain with phase 6's
    configuration (the JAX package's vmapped fit; the port fits each
    conditional as the sequential fit does), against phase 6's sequential fit from the same start (log-parameters
@@ -80,7 +85,8 @@ Phases, each of which fails the run:
 14. smc -- ``smc_host`` at N = 1e6 (64 particles, 3 mutations, at most 20
    stages), each particle's likelihood one call on K1/K2; the posterior
    median within 10% of the truth; the smoothed predictive at it;
-15. nuts -- ``benchmarks/ess.py --full`` under "on": NUTS, 8 chains in
+15. nuts -- ``benchmarks/ess.py --full`` under "on" through the port's
+   ``gpar_at_scale_torch/benchmarks/ess.py::run``: NUTS, 8 chains in
    lockstep, over the EEG FZ conditional (N = M = 156, float32, bounded
    reparameterization), the chains' matrices factored as one batch by K6a;
    R-hat, ESS, divergences; each chain's last draw against float64 "off";
@@ -124,6 +130,16 @@ Phases, each of which fails the run:
    around a K3 sweep against CUDA events; ``load_eeg_csv`` on a CSV with a
    text time column and an empty cell; and, first of all phases, a
    ``profiler_trace`` around a K3 sweep that must hold its kernels.
+21. scripts (run after phase 9) -- the repo's drivers on the port
+   (``gpar_at_scale_torch/examples/``, ``gpar_at_scale_torch/benchmarks/``):
+   ``dtc_example`` part (a) in float64 (its assertion) and in float32 on
+   K1/K2/K3, part (b); ``toy_example``; ``scaled_examples`` small and
+   ``--big`` (K1-K4b); ``plot_examples`` (its temporal GP on K1/K2,
+   K4a/K4b); ``chain_scale --outputs=2 --steps=2`` at N = 1e6 (K1-K4b, the
+   latent band's coverage near 0.95); ``mfu``'s rows (the Gram at N = 1e6,
+   M = 256 in float32, float64 and bf16, the dense whitening at 2048, the
+   bf16 control).  The float64 scripts at N <= 2048 are held against the
+   same function on the CPU.
 
 Phase 3 also runs the Monte-Carlo predictive ([mc]): the served chain's
 last conditional with ``predict_scaled(num_samples=100, generator=...)``
@@ -132,7 +148,8 @@ f_x part of the variance within 6 sqrt(2 / 99) relative), with both
 requests' seconds.
 
 Phase 2 also holds K6a/K6b/K6c against their plain versions at the EEG
-shapes (K6a at 156 x 156 with 157 columns and 256 x 256 with 413, and
+shapes (K6a at 156 x 156 with 157 columns and 256 x 256 with 413, that
+shape in a batch of 200 (batched serving), and
 each with no right-hand side, the factorization alone; K6b and K6c at
 156 x 156 with 256 and 157 columns), timed beside the ``torch.linalg``
 call that computes the same function by CUDA events and by the profiler's
@@ -152,6 +169,7 @@ import argparse
 import functools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -544,7 +562,7 @@ def check_kernel_edges(failures):
         want = ow.whiten_sweep_plain(g, Y, d, True, nb, T)
         worst[f"K3 d={d} n={n} B={B} {nb}x{T}"] = _rel_err(got, want, "ll alpha m".split())[1]
     for n, k, batch in ((13, 0, 1), (13, 5, 1), (40, 70, 3), (156, 150, 1), (300, 130, 1),
-                        (512, 3, 1)):
+                        (512, 3, 1), (256, 413, 200)):
         A = torch.as_tensor(rng.normal(size=(batch, n, n))).to(_DEV, f32)
         S = (A @ A.transpose(-1, -2) + n * torch.eye(n, device=_DEV)).contiguous()
         Bm = torch.as_tensor(rng.normal(size=(batch, n, k))).to(_DEV, f32)
@@ -556,7 +574,7 @@ def check_kernel_edges(failures):
             failures.append(f"K6a info {got[3].tolist()} != plain {want[3].tolist()} at n={n}")
     # K6b/K6c: one tile, several, ragged ones, a batch, n past 280
     for n, k, batch in ((1, 1, 1), (13, 5, 1), (40, 70, 3), (156, 157, 1), (300, 130, 1),
-                        (512, 3, 1), (512, 600, 1)):
+                        (512, 3, 1), (512, 600, 1), (156, 256 * 200, 1)):
         A = torch.as_tensor(rng.normal(size=(batch, n, n)), device=_DEV)
         L = torch.linalg.cholesky(A @ A.transpose(-1, -2) + n * torch.eye(n, device=_DEV))
         U = L.mT.to(f32).contiguous()
@@ -926,6 +944,8 @@ EEG_EXPECT = {
 # same VJPs through the plain versions, max |kernel - plain| / max |plain|
 # per input.
 K6_GRAD_TOL = 1e-3
+# Requests of bench.py's batched serving (bench.py:178-192): K6a's batch.
+BATCH_REQUESTS = 200
 # [eeg] start-parameter check, float32 kernels against float64 torch.linalg,
 # each component of the gradient on its own:
 # |g - g_ref| <= EEG_GRAD_RTOL |g_ref| + EEG_GRAD_ATOL.
@@ -1055,6 +1075,27 @@ def check_dense_kernels(ds, failures):
                library_ms=_time_ms(lambda: torch.linalg.cholesky_ex(S), reps=20),
                device=(_device_ms(lambda: dense.chol_solve(S, empty)),
                        _device_ms(lambda: torch.linalg.cholesky_ex(S))))
+    # the batched predictive's shape (bench.py's 200 requests in one call,
+    # gp/dtc.py::predict_scaled_batch): 200 spliced covariances, 413 columns
+    S = (m["Sigma_s"][None] * torch.linspace(1.0, 1.2, BATCH_REQUESTS, device=_DEV)[:, None, None]
+         ).contiguous()
+    B = m["both"][None].expand(BATCH_REQUESTS, -1, -1).contiguous()
+    b, n, k = B.shape
+    got, want = dense.chol_solve(S, B), dense.chol_solve(S, B, plain=True)
+    _sync(_DEV)
+    if int(got[3].max()) != 0:
+        failures.append(f"K6a reports a non-positive pivot in the batch of {b}")
+
+    def library_batch():
+        return torch.linalg.solve_triangular(torch.linalg.cholesky_ex(S).L, B, upper=False)
+
+    record(dense.K6A, f"K6a@b{b}", got[:3], want[:3], "U W logdet",
+           _time_ms(lambda: dense.chol_solve(S, B), reps=20),
+           _time_ms(lambda: dense.chol_solve(S, B, plain=True), reps=3),
+           _nbytes(S, B, *got), b * _chol_flops(n, k), label=f"batch={b} n={n} k={k}",
+           library_ms=_time_ms(library_batch, reps=20),
+           device=(_device_ms(lambda: dense.chol_solve(S, B)), _device_ms(library_batch)))
+    del S, B, got, want
     U, L = m["U"], m["L"]
     for kern, fn, key, lib in (
         (dense.K6B, dense.tri_ut, "K6b", lambda B: torch.linalg.solve_triangular(L, B, upper=False)),
@@ -1157,115 +1198,95 @@ def _nll64(fit):
 
 
 def eeg_run(ds, mode, failures, dtype=None):
-    """The EEG example on the card with ``engine.pallas_dense = mode``:
-    IGP, exact and scaled GPAR for FZ, F1, F2, each channel predicted from
-    the test-time observed channels and the predicted means of those
-    before.  IGP runs in float32 through the scan kernels, the conditionals
-    in ``dtype`` (float32 by default).  Returns ({model: {channel: mean}}, seconds per optimizer step,
-    seconds per request, launches of K6a-c in training, q(u) and requests
-    summed over the fits, {(backend, channel): the conditional's float64
-    objective at its end point})."""
-    import numpy as np
+    """The EEG example on the card with ``engine.pallas_dense = mode``,
+    through ``gpar_at_scale_torch/examples/eeg.py``'s ``run_igp`` and
+    ``run``: IGP, exact and scaled GPAR for FZ, F1, F2, each channel
+    predicted from the test-time observed channels and the predicted means
+    of those before.  IGP runs in float32 through the scan kernels
+    (``filter_impl="pallas"``: the example's "auto" takes the sequential
+    filter at this N, a Python loop of 156 steps per evaluation, 1.09 s per
+    L-BFGS step on the card), the conditionals in ``dtype`` (float32 by
+    default).  The example's ``observe`` hook reads the launch counts and
+    the request's time around each fit.  Returns ({model: {channel:
+    mean}}, seconds per optimizer step, seconds per request, launches of
+    K6a-c in training, q(u) and requests summed over the fits,
+    {(backend, channel): the conditional's float64 objective at its end
+    point})."""
     import torch
 
-    from gpar_at_scale_torch.data.eeg import TRAIN_POINTS
+    from gpar_at_scale_torch.examples import eeg as example
     from gpar_at_scale_torch.gp.dtc import compute_q_u
     from gpar_at_scale_torch.models import gpar
-    from gpar_at_scale_torch.models.gpar import GPARConfig, fit_conditional, fit_first_output
-    from gpar_at_scale_torch.utils.params import pack_gp, pack_gpar
 
     _set_dense_mode(mode)
-    f32, dev = torch.float32, _DEV
+    f32 = torch.float32
     dtype = dtype or f32
-    n = TRAIN_POINTS
-    as_dev = lambda a, dt=f32: torch.as_tensor(np.asarray(a)).to(dev, dt)  # noqa: E731
-    t_tr, t_te = as_dev(ds.t[:n]), as_dev(ds.t[n:])
-    obs = [ds.channels.index(c) for c in EEG_OBSERVED]
-    preds = {m: {} for m in EEG_EXPECT}
     step_s = {m: [] for m in EEG_EXPECT}
     req_s = {m: [] for m in EEG_EXPECT}
     totals = {part: (0, 0, 0) for part in ("train", "q(u)", "request")}
     ends = {}
+    qus = []
 
     def add(part, c):
         totals[part] = tuple(a + b for a, b in zip(totals[part], c))
 
-    def request(fn):
-        before = _dense_counts()
-        _sync(_DEV)
-        t0 = time.perf_counter()
-        mu, _ = fn()
-        _sync(_DEV)
-        return mu, time.perf_counter() - t0, _minus(_dense_counts(), before)
+    def counted_q_u(*args, **kwargs):
+        # the fit's own q(u) at its optimum, with the counts read around it
+        before_qu = _dense_counts()
+        out = compute_q_u(*args, **kwargs)
+        qus.append(_minus(_dense_counts(), before_qu))
+        return out
 
-    for ch in EEG_PREDICTED:
-        yi = ds.channels.index(ch)
-        # the temporal likelihood through the scan kernels K1/K2 and K4a/K4b:
-        # 'auto' takes the sequential filter at this N, a Python loop of 156
-        # steps per evaluation (1.09 s per L-BFGS step on the card)
-        cfg = GPARConfig(first_output_backend="temporal", filter_impl="pallas",
-                         max_opt_steps=EEG_STEPS, dtype=f32)
-        before = _dense_counts()
-        fit = fit_first_output(None, t_tr, as_dev(ds.Y[:n, yi]), cfg, device=dev,
-                               init_params=_tensor_params(EEG_GP_START, pack_gp, dev, f32))
-        train = _minus(_dense_counts(), before)
-        mu, secs, req = request(lambda: fit.predict(t_te))
-        if mode == "on":
-            _check_eeg_counts("IGP", ch, train, (0, 0, 0), req, failures)
-        preds["IGP"][ch] = mu
-        step_s["IGP"].append(fit.opt.seconds / max(fit.opt.num_steps, 1))
-        req_s["IGP"].append(secs)
-        add("train", train)
-        add("request", req)
-    t_tr, t_te = as_dev(ds.t[:n], dtype), as_dev(ds.t[n:], dtype)
-    for backend in ("exact", "scaled"):
-        cols_tr = [as_dev(ds.Y[:n, i], dtype) for i in obs]
-        cols_te = [as_dev(ds.Y[n:, i], dtype) for i in obs]
-        for ch in EEG_PREDICTED:
-            yi = ds.channels.index(ch)
-            cfg = GPARConfig(backend=backend, num_pseudo_points=n, max_opt_steps=EEG_STEPS,
-                             dtype=dtype)
-            qus = []
+    def observer(model):
+        state = {}
 
-            def counted_q_u(*args, **kwargs):
-                # the fit's own q(u) at its optimum, with the counts read around it
-                before_qu = _dense_counts()
-                out = compute_q_u(*args, **kwargs)
-                qus.append(_minus(_dense_counts(), before_qu))
-                return out
-
-            before = _dense_counts()
-            gpar.compute_q_u = counted_q_u
-            try:
-                fit = fit_conditional(None, t_tr, torch.stack(cols_tr, 1),
-                                      as_dev(ds.Y[:n, yi], dtype), cfg, device=dev,
-                                      init_params=_tensor_params(EEG_COND_START, pack_gpar, dev,
-                                                                 dtype))
-            finally:
-                gpar.compute_q_u = compute_q_u
-            qu = qus[0] if qus else (0, 0, 0)
-            train = _minus(_minus(_dense_counts(), before), qu)
-            X_te = torch.stack(cols_te, 1)
-            mu, secs, req = request(lambda: fit.predict(t_te, X_te))
-            ends[(backend, ch)] = _nll64(fit)
-            if mode == "on":
-                evals, left = _check_eeg_counts(backend, ch, train, qu, req, failures)
-                _log(f"[eeg] {mode} {backend} {ch}: {fit.opt.num_steps} L-BFGS steps, {evals} "
-                     f"evaluations (+{left} K6a launches of evaluations that left the domain), "
-                     f"nll {float(fit.opt.value):.4f} (float64 at these parameters "
-                     f"{ends[(backend, ch)]:.4f}), {fit.opt.seconds:.3f} s; "
-                     f"K6a/K6b/K6c launches: training {train}, q(u) {qu}, request {req}")
+        def observe(event, ch, fit):
+            _sync(_DEV)
+            if event == "start":
+                qus.clear()
+                state["before"] = _dense_counts()
+                return
+            if event == "fit":
+                state["qu"] = qus[0] if qus else (0, 0, 0)
+                state["train"] = _minus(_minus(_dense_counts(), state["before"]), state["qu"])
+                state["req"] = _dense_counts()
+                state["t0"] = time.perf_counter()
+                return
+            secs = time.perf_counter() - state["t0"]
+            train, qu, req = state["train"], state["qu"], _minus(_dense_counts(), state["req"])
+            if model == "IGP":
+                if mode == "on":
+                    _check_eeg_counts("IGP", ch, train, (0, 0, 0), req, failures)
             else:
-                _log(f"[eeg] {mode} {backend} {ch}: {fit.opt.num_steps} L-BFGS steps, nll "
-                     f"{float(fit.opt.value):.4f}, {fit.opt.seconds:.3f} s")
-            preds[backend][ch] = mu
-            step_s[backend].append(fit.opt.seconds / max(fit.opt.num_steps, 1))
-            req_s[backend].append(secs)
+                ends[(model, ch)] = _nll64(fit)
+                if mode == "on":
+                    evals, left = _check_eeg_counts(model, ch, train, qu, req, failures)
+                    _log(f"[eeg] {mode} {model} {ch}: {fit.opt.num_steps} L-BFGS steps, {evals} "
+                         f"evaluations (+{left} K6a launches of evaluations that left the domain), "
+                         f"nll {float(fit.opt.value):.4f} (float64 at these parameters "
+                         f"{ends[(model, ch)]:.4f}), {fit.opt.seconds:.3f} s; "
+                         f"K6a/K6b/K6c launches: training {train}, q(u) {qu}, request {req}")
+                else:
+                    _log(f"[eeg] {mode} {model} {ch}: {fit.opt.num_steps} L-BFGS steps, nll "
+                         f"{float(fit.opt.value):.4f}, {fit.opt.seconds:.3f} s")
+            step_s[model].append(fit.opt.seconds / max(fit.opt.num_steps, 1))
+            req_s[model].append(secs)
             add("train", train)
             add("q(u)", qu)
             add("request", req)
-            cols_tr.append(as_dev(ds.Y[:n, yi], dtype))  # train on the true values
-            cols_te.append(mu)  # chain the predictions forward
+
+        return observe
+
+    gpar.compute_q_u = counted_q_u
+    try:
+        out = {"IGP": example.run_igp(ds, device=_DEV, max_opt_steps=EEG_STEPS, dtype=f32,
+                                      filter_impl="pallas", observe=observer("IGP"))}
+        for backend in ("exact", "scaled"):
+            out[backend] = example.run(backend, ds, device=_DEV, max_opt_steps=EEG_STEPS,
+                                       dtype=dtype, observe=observer(backend))
+    finally:
+        gpar.compute_q_u = compute_q_u
+    preds = {m: {ch: v[0] for ch, v in out[m].items()} for m in out}
     return preds, step_s, req_s, totals, ends
 
 
@@ -1379,69 +1400,34 @@ def eeg_phase(failures):
     return on_launches, {mode: results[mode][4] for mode in results}, smse_fz
 
 
-def bench_pipeline():
-    """bench.py's pipeline on the card (its data, made with numpy): returns
-    (pipeline, predict).  ``pipeline()`` takes 50 Adam steps of learning
-    rate 5e-2 on the DTC bound through the dense whitening, then q(u) and
-    one predictive of 100 points, and returns (result, q(u), prediction);
-    ``predict(params, q(u))`` is one request.  The dense switch in force
-    when they run decides the path."""
-    import numpy as np
-    import torch
-
-    from gpar_at_scale_torch.gp.dtc import compute_q_u, dtc_objective, predict_scaled
-    from gpar_at_scale_torch.inference.optimize import minimize_adam
-    from gpar_at_scale_torch.kernels import Matern52
-    from gpar_at_scale_torch.ssm.markov import lgssm_of
-    from gpar_at_scale_torch.utils.params import unpack_gpar
-
-    f32 = torch.float32
-    n, n_star, d = 156, 100, 3
-    rng = np.random.default_rng(0)
-    t = np.arange(1, n + 1, dtype=np.float64) / 64.0
-    t_star = (n + np.arange(1, n_star + 1, dtype=np.float64)) / 64.0
-    X = rng.normal(size=(n, d))
-    X_star = rng.normal(size=(n_star, d))
-    y = np.sin(3 * t) + 0.2 * X[:, 0] + 0.05 * rng.normal(size=n)
-    t, t_star, X, X_star, y = (torch.as_tensor(a).to(_DEV, f32) for a in (t, t_star, X, X_star, y))
-    Z = X
-
-    def kernels(p):
-        tl, ts, ol, osig, ns = unpack_gpar(p)
-        return Matern52(lengthscale=tl, variance=ts**2), Matern52(lengthscale=ol, variance=osig**2), ns**2
-
-    def nlml(p):
-        time_k, out_k, nv = kernels(p)
-        return -dtc_objective(out_k, lgssm_of(time_k, t, nv, f32), X, Z, y, uu_ridge=nv,
-                              filter_fn="dense", time_kernel=time_k, t=t)
-
-    def predict(p, qu):
-        time_k, out_k, nv = kernels(p)
-        return predict_scaled(out_k, time_k, qu, X, t, y, t_star, X_star, nv, dtype=f32)
-
-    def pipeline():
-        res = minimize_adam(nlml, torch.zeros(5, dtype=f32, device=_DEV), learning_rate=5e-2,
-                            max_steps=50)
-        time_k, out_k, nv = kernels(res.params)
-        with torch.no_grad():
-            qu = compute_q_u(out_k, lgssm_of(time_k, t, nv, f32), X, Z, y, uu_ridge=nv,
-                             filter_fn="dense", time_kernel=time_k, t=t)
-            pred = predict(res.params, qu)
-        return res, qu, pred
-
-    return pipeline, predict
+# [eeg-bench] batched serving: bench.py's 200 requests in one batched
+# predictive (gp/dtc.py::predict_scaled_batch) against the 200 sequential
+# predicts, float32, max |batched - sequential| / max |sequential| of the
+# means and of the variances.  Under "on" both run the same kernels per
+# request (the batch rides K6a's grid and the shared q(u) solves' columns);
+# under "off" batched and single cuSOLVER factorizations round differently,
+# and the spliced covariance (train noise about 1e-3 of the signal) is
+# conditioned near 1e4, so float32 rounding may reach 1e-4 there.  1e-3
+# still fails a request answered with another row's parameters (O(1)).
+BATCH_TOL = 1e-3
 
 
 def eeg_bench(failures, reps=5, requests=200):
-    """bench.py's pipeline (``bench_pipeline``) under "on" and "off", in
-    turns (on, off, off, on).  Prints the median seconds per pipeline and
-    per request (200 sequential requests) and one traced pipeline's device
-    busy share per mode, with the device copies it ran."""
+    """bench.py's pipeline (``gpar_at_scale_torch/benchmarks/bench.py``'s
+    ``bench_pipeline``) under "on" and "off", in turns (on, off, off, on).
+    Prints the median seconds per pipeline and per request (200 sequential
+    requests) and one traced pipeline's device busy share per mode, with the
+    device copies it ran; then per mode the port's ``bench.py`` itself
+    (``measure``: its JSON line, batched serving in obs/s), the 200 batched
+    requests held against the 200 sequential ones, and the K6a-c launches
+    of one batched request (one K6a expected under "on")."""
     import numpy as np
     import torch
 
+    from gpar_at_scale_torch.benchmarks import bench
+
     n_star = 100
-    pipeline, predict = bench_pipeline()
+    pipeline, predict, predict_batch = bench.bench_pipeline(_DEV)
 
     def timed(fn):
         _sync(_DEV)
@@ -1453,6 +1439,7 @@ def eeg_bench(failures, reps=5, requests=200):
     pipe_s = {"on": [], "off": []}
     req_s = {"on": [], "off": []}
     last = {}
+    batched = {}
     try:
         for mode in ("on", "off"):  # warm-up
             _set_dense_mode(mode)
@@ -1473,6 +1460,35 @@ def eeg_bench(failures, reps=5, requests=200):
             _log(f"[eeg-bench] traced pipeline ({mode}): K6a/K6b/K6c launches "
                  f"{_minus(_dense_counts(), before)}; "
                  f"{sum(c for k, c, _ in events if 'copy' in k.lower())} device copies")
+        for mode in ("on", "off"):
+            _set_dense_mode(mode)
+            out = bench.measure(_DEV, reps=reps, requests=requests, rounds=bench.ROUNDS)
+            qu, P = out["qu"], out["pbatch"]
+            with torch.no_grad():
+                before = _dense_counts()
+                got = predict_batch(P, qu)
+                _sync(_DEV)
+                one = _minus(_dense_counts(), before)
+                seq = [predict(p, qu) for p in P]
+            want_mu = torch.stack([r.mean for r in seq])
+            want_var = torch.stack([r.var for r in seq])
+            rel = (float((got.mean - want_mu).abs().max() / want_mu.abs().max()),
+                   float((got.var - want_var).abs().max() / want_var.abs().max()))
+            batched[mode] = (out, one, rel)
+            ok_ = (all(math.isfinite(r) and r <= BATCH_TOL for r in rel)
+                   and got.mean.shape == (requests, n_star)
+                   and one == ((1, 2, 0) if mode == "on" else (0, 0, 0)))
+            _log(f"[eeg-bench] bench.py ({mode}): pipeline mean "
+                 f"{statistics.mean(out['pipeline_s']):.5f} s over {len(out['pipeline_s'])}, "
+                 f"request median {statistics.median(out['request_s']):.6f} s, batched serving "
+                 f"{out['obs_per_s']:,.0f} obs/s ({bench.ROUNDS} rounds of {requests} requests in "
+                 f"{out['batched_s']:.4f} s); one batched request of {requests}: K6a/K6b/K6c "
+                 f"launches {one}; batched vs {requests} sequential: mean rel {rel[0]:.2e}, var "
+                 f"rel {rel[1]:.2e} (tol {BATCH_TOL:.0e}) {'ok' if ok_ else 'FAIL'}")
+            _log(f"[eeg-bench] bench.py JSON ({mode}): " + json.dumps(out["json"]))
+            if not ok_:
+                failures.append(f"[eeg-bench] batched serving under '{mode}' disagrees with the "
+                                f"sequential requests or launched {one}")
     finally:
         _set_dense_mode("off")
     (r_on, p_on), (r_off, p_off) = last["on"], last["off"]
@@ -1486,6 +1502,169 @@ def eeg_bench(failures, reps=5, requests=200):
     _log(f"[eeg-bench] on vs off: max |mean difference| {d_mu:.3e}; finite {finite}")
     if not (finite and p_on.mean.shape == (n_star,)):
         failures.append("[eeg-bench] the pipeline's predictions are not finite or of the wrong shape")
+    return batched
+
+
+# ---------------------------------------------------------------------------
+# The repo's drivers on the port: gpar_at_scale_torch/examples/ and benchmarks/
+# ---------------------------------------------------------------------------
+
+# [scripts] dtc_example part (a) in float32 on the kernels (filter_fn="pallas":
+# K1/K2 gain pass, K3 columns) against the float64 dense value: the script's
+# own bound, |dtc - dense| < 1e-5 |dense|.  At N = 30 the float32 whitening
+# and the float64 Gram after it carry a few float32 roundings of an O(10)
+# bound; the kernels' plain versions missed by 9.3e-7 relative on a CPU.
+DTC_F32_RTOL = 1e-5
+# The float64 scripts at N <= 2048 (dtc_example part (b), toy_example,
+# scaled_examples small, plot_examples' exact GP) on the card against the same
+# function on the CPU in this process: SMSE and hyperparameters within 1e-2
+# relative.  Both run float64 torch.linalg, but cuBLAS/cuSOLVER and the CPU's
+# libraries round differently and L-BFGS follows its rounding for up to 150
+# steps, so the end points agree only to the optimizer's tolerance; a device
+# fault (a wrong path, a mixed-up input) moves them by O(1).
+SCRIPT_CPU_RTOL = 1e-2
+# chain_scale's latent band: the share of test points within 2 sd of the
+# predictive latent variance, near 0.95 (0.92 and 0.96 on a CPU at N = 5e4
+# after 2 Adam steps); a variance off by a factor 2 gives 0.84 or 0.995.
+CHAIN_COV_BAND = (0.87, 0.99)
+
+
+def _rel(got, want):
+    """max |got - want| / max |want|."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _quietly(fn, *args, **kwargs):
+    """fn's result, its printed lines kept out of the run's output."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def scripts_phase(failures):
+    """[scripts] The repo's drivers on the port, each through its module's
+    functions: ``dtc_example`` part (a) in float64 (the script's assertion)
+    and in float32 on K1/K2/K3 (``filter_fn="pallas"``), part (b);
+    ``toy_example``; ``scaled_examples`` on the small set and with
+    ``--big`` (K1-K4b); ``plot_examples`` (the temporal GP on K1/K2 and
+    K4a/K4b); ``chain_scale --outputs=2 --steps=2`` at N = 1e6 (K1-K4b);
+    ``mfu``'s rows.  The float64 scripts at N <= 2048 are held against the
+    same function on the CPU.  Returns the launches of every kernel in the
+    phase."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.benchmarks import chain_scale, mfu
+    from gpar_at_scale_torch.data.toy import generate_big_dataset, generate_small_dataset
+    from gpar_at_scale_torch.examples import dtc_example, plot_examples, scaled_examples
+    from gpar_at_scale_torch.examples import toy_example
+    from gpar_at_scale_torch.ops import K1, K2, K3, K4A, K4B
+
+    dev, cpu = torch.device(_DEV), torch.device("cpu")
+    total = {k: 0 for k in _all_counts()}
+    t_phase = time.perf_counter()
+
+    def counted(tag, fn, want=(), none=False):
+        """fn() with the kernels' launches read around it; every kernel in
+        ``want`` must launch, none at all with ``none``."""
+        before = _all_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(_DEV)
+        secs = time.perf_counter() - t0
+        got = {k: c - before[k] for k, c in _all_counts().items()}
+        for k in got:
+            total[k] += got[k]
+        ok_ = all(got[k.name] > 0 for k in want) and not (none and any(got.values()))
+        _log(f"[scripts] {tag}: {secs:.2f} s; launches "
+             + ", ".join(f"{k.split()[0]} {v}" for k, v in got.items() if v)
+             + ("" if any(got.values()) else "none") + ("" if ok_ else " FAIL"))
+        if not ok_:
+            failures.append(f"[scripts] {tag}: kernel launches {got} (expected "
+                            f"{'none' if none else [k.name for k in want]})")
+        return out
+
+    def hold(tag, got, want):
+        rel = _rel(got, want)
+        ok_ = math.isfinite(rel) and rel <= SCRIPT_CPU_RTOL
+        _log(f"[scripts] {tag} on the card vs the CPU: max rel {rel:.3e} "
+             f"(tol {SCRIPT_CPU_RTOL:.0e}) {'ok' if ok_ else 'FAIL'}")
+        if not ok_:
+            failures.append(f"[scripts] {tag}: the card and the CPU disagree (rel {rel:.3e})")
+
+    # dtc_example: (a) as the script asserts it, float64, sequential whitening
+    try:
+        k64, dense, diff = counted("dtc_example (a) float64", lambda: _quietly(
+            dtc_example.compare_dtc_with_dense, device=dev), none=True)
+        _log(f"[scripts] dtc_example (a): Kalman-whitened {k64:.6f}, dense {dense:.6f}, "
+             f"difference {diff:.2e} (< 1e-5 |dense| asserted) ok")
+    except AssertionError as exc:
+        failures.append(f"[scripts] dtc_example (a) failed its assertion: {exc}")
+        dense = dtc_example.dense_dtc()
+    k32 = counted("dtc_example (a) float32 on the kernels", lambda: dtc_example.kalman_dtc(
+        device=dev, dtype=torch.float32, filter_fn="pallas"), want=(K1, K2, K3))
+    ok_ = abs(k32 - dense) < DTC_F32_RTOL * abs(dense)
+    _log(f"[scripts] dtc_example (a) float32 (K1/K2/K3): {k32:.6f} vs float64 dense {dense:.6f}, "
+         f"rel {abs(k32 - dense) / abs(dense):.2e} (tol {DTC_F32_RTOL:.0e}) "
+         f"{'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[scripts] dtc_example's float32 kernel route disagrees with the dense bound")
+    fits = counted("dtc_example (b)", lambda: dtc_example.compare_optimum_params(device=dev),
+                   none=True)
+    fits_cpu = _quietly(dtc_example.compare_optimum_params, device=cpu)
+    hold("dtc_example (b) hyperparameters", [f.hyperparams() for f in fits],
+         [f.hyperparams() for f in fits_cpu])
+
+    # toy_example (float64, dense torch.linalg: no kernel of ours)
+    toy = counted("toy_example", lambda: toy_example.run(device=dev), none=True)
+    toy_example.report(toy)
+    hold("toy_example SMSE", toy["smse"], toy_example.run(device=cpu)["smse"])
+
+    # scaled_examples: small (dense, float64), then --big (the kernels)
+    small = counted("scaled_examples small", lambda: scaled_examples.run(
+        generate_small_dataset(seed=0), 10, scaled_examples.OPT_STEPS, "small", 3, device=dev,
+        plot=False), none=True)
+    small_cpu = _quietly(scaled_examples.run, generate_small_dataset(seed=0), 10,
+                         scaled_examples.OPT_STEPS, "small", 3, device=cpu, plot=False)
+    hold("scaled_examples small SMSE", small["smse"], small_cpu["smse"])
+    big = counted("scaled_examples --big", lambda: scaled_examples.run(
+        generate_big_dataset(seed=0), 50, scaled_examples.OPT_STEPS, "big", 100, device=dev,
+        plot=False), want=(K1, K2, K3, K4A, K4B))
+
+    # plot_examples: the exact GP (float64) and the temporal GP (K1/K2, K4a/K4b)
+    exact = counted("plot_examples exact", lambda: plot_examples.exact_example(device=dev),
+                    none=True)
+    exact_cpu = _quietly(plot_examples.exact_example, device=cpu)
+    hold("plot_examples exact mean", exact[2], exact_cpu[2])
+    temporal = counted("plot_examples temporal", lambda: plot_examples.temporal_example(device=dev),
+                       want=(K1, K2, K4A, K4B))
+    finite = all(bool(np.isfinite(x).all()) for x in (
+        toy["smse"], small["smse"], big["smse"], big["means"], exact[2], temporal[2], temporal[3]))
+
+    # chain_scale at N = 1e6, two outputs, two Adam steps: the mechanism
+    chain = counted("chain_scale --outputs=2 --steps=2", lambda: chain_scale.run(
+        N, P=2, M=M, steps=2, n_star=N_STAR, device=dev), want=(K1, K2, K3, K4A, K4B))
+    lo, hi = CHAIN_COV_BAND
+    cov_ok = all(lo <= c <= hi for c in chain["cov2f"])
+    finite &= all(bool(torch.isfinite(m).all()) for m in chain["means"])
+    _log(f"[scripts] chain_scale: latent-band coverage {chain['cov2f']} in [{lo}, {hi}] "
+         f"{'ok' if cov_ok else 'FAIL'}; cov2s {chain['cov2s']} (cannot fail)")
+    if not cov_ok:
+        failures.append(f"[scripts] chain_scale's latent-band coverage {chain['cov2f']} is not "
+                        f"near 0.95")
+
+    # mfu: the compute-bound stages at the card's sizes
+    rows = counted("mfu", lambda: mfu.run(dev, reps=50), none=True)
+    finite &= all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows)
+    if not finite:
+        failures.append("[scripts] a script gave non-finite numbers")
+    _log(f"[scripts] the phase in {time.perf_counter() - t_phase:.1f} s; finite {finite}")
+    return total, rows
 
 
 # ---------------------------------------------------------------------------
@@ -2238,15 +2417,10 @@ def nuts_phase(seed, smse_type2, failures):
     import numpy as np
     import torch
 
+    from gpar_at_scale_torch.benchmarks import ess as ess_bench
     from gpar_at_scale_torch.data.eeg import TRAIN_POINTS, generate_synthetic_eeg
-    from gpar_at_scale_torch.inference.diagnostics import ess, split_rhat
     from gpar_at_scale_torch.inference.hmc import value_and_grad
-    from gpar_at_scale_torch.models.bayes import (
-        bounded_reparam,
-        make_conditional_logpost,
-        predictive_mixture_scaled,
-        sample_conditional_posterior,
-    )
+    from gpar_at_scale_torch.models.bayes import predictive_mixture_scaled
 
     ds = generate_synthetic_eeg(seed=0)
     n = TRAIN_POINTS
@@ -2256,27 +2430,23 @@ def nuts_phase(seed, smse_type2, failures):
     f32, f64 = torch.float32, torch.float64
 
     def bounded(dtype):
-        lp = make_conditional_logpost(ds.t[:n], X, y, likelihood="dtc", Z=X, dtype=dtype,
-                                      device=_DEV)
-        return bounded_reparam(lp, bound=3.0)
+        return ess_bench.eeg_logpost(_DEV, dtype, full=True)
 
+    assert ess_bench.MAX_DEPTH == NUTS_DEPTH
     try:
         _set_dense_mode("on")
-        logpost_u, constrain = bounded(f32)
         if torch.device(_DEV).type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         _zero_counts()
         t0 = time.perf_counter()
-        res = sample_conditional_posterior(
-            torch.Generator(device=_DEV).manual_seed(seed), logpost_u, num_chains=NUTS_CHAINS,
-            num_samples=NUTS_SAMPLES, num_warmup=NUTS_WARMUP, max_depth=NUTS_DEPTH, dim=5,
-            dtype=f32, device=_DEV)
+        run = ess_bench.run(_DEV, chains=NUTS_CHAINS, full=True, num_samples=NUTS_SAMPLES,
+                            num_warmup=NUTS_WARMUP, seed=seed)
         launches = _all_counts()
-        secs = _phase_end("nuts", t0, launches)
+        _phase_end("nuts", t0, launches)
+        res, logpost_u, constrain, secs = run["res"], run["logpost_u"], run["constrain"], run["secs"]
         st = res.stats
-        pooled = constrain(res.samples).double().cpu().numpy()  # (C, S, 5)
-        rhat, ess_ = np.atleast_1d(split_rhat(pooled)), np.atleast_1d(ess(pooled))
-        n_div, n_tot = int(res.num_divergent), NUTS_CHAINS * NUTS_SAMPLES
+        pooled, rhat, ess_ = run["pooled"], run["rhat"], run["ess"]  # pooled: (C, S, 5)
+        n_div, n_tot = run["divergent"], run["total"]
         leaves = st.num_calls
         _log(f"[nuts] EEG FZ | F3-F6 (N = M = {n}, float32, 'on'): {NUTS_CHAINS} chains x "
              f"({NUTS_WARMUP} + {NUTS_SAMPLES}) in {secs:.3f} s; {leaves} batched logpost calls "
@@ -3487,8 +3657,10 @@ def main(argv=None):
     for key, a, b in zip(("K6a", "K6b", "K6c"), eeg_launches, eeg_par_launches):
         records[key]["launches"] = a
         records[key]["launches_by_path"] = {"eeg": a, "parallel": b}
-    # 9. bench.py's pipeline under "on" and "off"
-    eeg_bench(failures)
+    # 9. bench.py's pipeline under "on" and "off", with batched serving
+    batched = eeg_bench(failures)
+    # the repo's drivers on the port
+    script_launches, mfu_rows = scripts_phase(failures)
     # 11. the reference-named api on the big toy dataset
     api_launches = api_phase(args.seed, failures)
     for key, k in zip(("K1", "K2", "K3", "K4a", "K4b"), scan):
@@ -3508,7 +3680,8 @@ def main(argv=None):
     dist = dist_phase(t_np, Y_np, params, par_ends, failures)
     chain = {k: dist["chain21"][k] + dist["chain12"][k] for k in dist["chain21"]}
     new_paths += (("dist-seq", dist["seq"]), ("dist-model", dist["model"]), ("dist-chain", chain),
-                  ("dist-fit", dist["fit"]), ("aux", aux_phase(t_np, Y_np, params, failures)))
+                  ("dist-fit", dist["fit"]), ("aux", aux_phase(t_np, Y_np, params, failures)),
+                  ("scripts", script_launches))
     from gpar_at_scale_torch.ops import KERNELS
 
     for key, k in zip(("K1", "K2", "K3", "K4a", "K4b", "K6a", "K6b", "K6c"), KERNELS):

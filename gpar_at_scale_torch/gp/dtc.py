@@ -56,13 +56,16 @@ treats that point as outside the objective's domain, as optax's line
 search treats the NaN the JAX package gets there.
 
 ``predict_scaled`` has no ``smooth_fn`` argument: the port dispatches on
-N_all alone.  The iid-noise sparse GP (``dtc_objective_iid``,
+N_all alone.  ``predict_scaled_batch`` is its analytic predictive for a
+batch of parameter sets on the dense branch (the JAX package vmaps
+``predict_scaled``).  The iid-noise sparse GP (``dtc_objective_iid``,
 ``titsias_elbo``, ``predict_sparse_iid``) factors and solves through
 ``utils/psd.py``, so it takes K6a-c under ``engine.pallas_dense``.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
@@ -285,8 +288,27 @@ def compute_q_u(
 
 
 class _DenseSmooth(NamedTuple):
-    mean: torch.Tensor  # (N, B) posterior means of f_t per column
-    var: torch.Tensor  # (N,)   posterior marginal variances
+    mean: torch.Tensor  # (..., N, B) posterior means of f_t per column
+    var: torch.Tensor  # (..., N)   posterior marginal variances
+
+
+def _dense_condition(K, noise_s, cols, prior_var):
+    """Dense GP conditioning of the columns ``cols`` (..., N, B) on the
+    prior covariance K (..., N, N) with the observation noise ``noise_s``:
+    E[f] = K (K + diag(noise))^-1 cols, Var[f] = prior_var - diag(K (K + D)^-1 K).
+    A leading batch axis rides through every step; under the dense switch
+    the whole batch is one K6a launch with N + B columns."""
+    n_all = K.shape[-1]
+    Sigma = K + torch.diag_embed(noise_s.expand(K.shape[:-1]))
+    both = torch.cat([K, cols], dim=-1)
+    if _pallas_dense_ok(Sigma, both):
+        _, Wb, _ = chol_solve(Sigma, both)  # one K6a launch, N_all + M + 1 columns
+    else:
+        Wb = solve_lower(torch.linalg.cholesky(Sigma), both)
+    W = Wb[..., :n_all]  # L^-1 K: W^T W = K Sigma^-1 K
+    mean = W.transpose(-1, -2) @ Wb[..., n_all:]
+    var = prior_var - (W * W).sum(-2)
+    return _DenseSmooth(mean=mean, var=torch.clamp(var, min=0.0))
 
 
 def _dense_smoother(time_kernel: Kernel, t_s, noise_s):
@@ -296,18 +318,7 @@ def _dense_smoother(time_kernel: Kernel, t_s, noise_s):
     def smooth(lgssm, cols):
         del lgssm  # the same temporal posterior, computed densely
         t2 = t_s[:, None]
-        n_all = t_s.shape[0]
-        K = time_kernel(t2, t2)
-        Sigma = K + torch.diag(noise_s.expand(n_all))
-        both = torch.cat([K, cols], dim=1)
-        if _pallas_dense_ok(Sigma, both):
-            _, Wb, _ = chol_solve(Sigma, both)  # one K6a launch, N_all + M + 1 columns
-        else:
-            Wb = solve_lower(torch.linalg.cholesky(Sigma), both)
-        W = Wb[:, :n_all]  # L^-1 K: W^T W = K Sigma^-1 K
-        mean = W.T @ Wb[:, n_all:]
-        var = time_kernel.diag_part(t2) - (W * W).sum(0)
-        return _DenseSmooth(mean=mean, var=torch.clamp(var, min=0.0))
+        return _dense_condition(time_kernel(t2, t2), noise_s, cols, time_kernel.diag_part(t2))
 
     return smooth
 
@@ -441,6 +452,82 @@ def _predict_scaled(
     mean_star = (mean + mean_all)[inv_order][n:]
     var_star = var_all[inv_order][n:]
     return ScaledPrediction(mean=mean_star, var=torch.clamp(var_star, min=0.0))
+
+
+def _batched_kernel(kernel: Kernel, dtype, device):
+    """A stationary kernel whose hyperparameters are (B,) tensors, with
+    them as (B, 1, 1): its Gram of (N, D) inputs is then (B, N, N)
+    (``kernels/base.py::sq_dist`` broadcasts the scaled inputs)."""
+    from gpar_at_scale_torch.kernels.stationary import StationaryKernel
+
+    if not isinstance(kernel, StationaryKernel):
+        raise TypeError(f"the batched predictive takes stationary kernels, got {type(kernel).__name__}")
+    out = copy.copy(kernel)
+    for name in ("lengthscale", "variance"):
+        v = torch.as_tensor(getattr(kernel, name), dtype=dtype, device=device)
+        if v.ndim != 1:
+            raise ValueError(f"the batched predictive takes (B,) hyperparameters, "
+                             f"got {name} of shape {tuple(v.shape)}")
+        setattr(out, name, v[:, None, None])
+    return out
+
+
+def predict_scaled_batch(
+    out_kernel, time_kernel, qu: QU, V, t, y, t_star, V_star, noise_var, mean=0.0, *,
+    dtype=torch.float64,
+) -> ScaledPrediction:
+    """``predict_scaled`` (analytic) for B hyperparameter sets against one
+    cached q(u): the lengthscales and variances of both stationary kernels
+    and ``noise_var`` are (B,) tensors.  Returns means and variances
+    (B, N*), each row the ``predict_scaled`` of its parameter set.  This is
+    the JAX package's ``jax.vmap`` of ``predict_scaled`` over parameter
+    vectors (``bench.py``'s batched serving).
+
+    Only the dense branch is batched (N + N* <= DENSE_N_MAX spliced
+    steps; above it ``ValueError``): the scan kernels K1-K4b take one
+    series per call.  q(u)'s factors are shared, so K_*u L_uu^-T and
+    Phi L_D^-T are one triangular solve each over all B x N_all rows
+    (K6b under the dense switch), and the smoother factors the B spliced
+    covariances and solves their N_all + M + 1 columns in one K6a launch
+    (under "off", batched ``torch.linalg``)."""
+    V, V_star = _as_2d(V).to(dtype), _as_2d(V_star).to(dtype)
+    t, t_star, y = t.to(dtype), t_star.to(dtype), y.to(dtype)
+    n, n_star = t.shape[0], t_star.shape[0]
+    n_all = n + n_star
+    if n_all > DENSE_N_MAX:
+        raise ValueError(
+            f"predict_scaled_batch: {n_all} spliced steps exceed DENSE_N_MAX = {DENSE_N_MAX}; "
+            "the scan kernels have no parameter-batch axis (ROADMAP: the batched predictive "
+            "on the scan branch), so call predict_scaled once per parameter set")
+    dev = t.device
+    out_b, time_b = _batched_kernel(out_kernel, dtype, dev), _batched_kernel(time_kernel, dtype, dev)
+    nv = torch.as_tensor(noise_var, dtype=dtype, device=dev)
+    b = nv.shape[0]
+    order, inv_order, t_s, _ = splice(t, t_star, 0.0, dtype)
+    noise_s = torch.cat([nv[:, None].expand(b, n),
+                         torch.full((b, n_star), 1e10, dtype=dtype, device=dev)], dim=1)[:, order]
+    V_s = torch.cat([V, V_star])[order]
+    y_s = torch.cat([y - mean, y.new_zeros(n_star)])[order]
+
+    def solve_shared(L, X):  # L^-1 X^T for X (b, N_all, M): one solve, b N_all columns
+        m = X.shape[-1]
+        out = solve_lower(L.to(dtype), X.permute(2, 0, 1).reshape(m, -1))
+        return out.reshape(m, b, n_all).permute(1, 2, 0)
+
+    K_su = out_b(V_s, qu.Z.to(dtype))  # (b, N_all, M)
+    Phi = solve_shared(qu.L_uu, K_su)  # K_*u L_uu^-T
+    G = solve_shared(qu.L_D, Phi)  # Phi L_D^-T
+    fx_bar = Phi @ qu.m_eps.to(dtype)  # (b, N_all)
+    t2 = t_s[:, None]
+    sm = _dense_condition(time_b(t2, t2), noise_s,
+                          torch.cat([(y_s - fx_bar)[..., None], G], dim=-1),
+                          time_b.variance[:, :, 0].expand(b, n_all))
+    mean_all = fx_bar + sm.mean[..., 0]
+    H = G - sm.mean[..., 1:]
+    var_all = (H * H).sum(-1) + sm.var
+    mean_star = (mean + mean_all)[:, inv_order][:, n:]
+    return ScaledPrediction(mean=mean_star,
+                            var=torch.clamp(var_all[:, inv_order][:, n:], min=0.0))
 
 
 # ---------------------------------------------------------------------------

@@ -328,12 +328,12 @@ def _conditional_bound(cfg: GPARConfig, t_s, X_s, y_s, Z):
 
 
 def fit_conditional(
-    generator, t, X_prev, y, cfg: GPARConfig, init_params=None, *, device=None
+    generator, t, X_prev, y, cfg: GPARConfig, init_params=None, *, Z=None, device=None
 ) -> FittedConditional:
     """Type-II ML for one conditional.  ``scaled``: sort by time, pick the
-    pseudo-points, maximize the DTC bound through the configured whitening
-    engine (Z fixed, as in the JAX package), then compute q(u) at the
-    optimum.  ``exact``: maximize the dense exact likelihood under the
+    pseudo-points (``Z`` (M, i-1) if given, else evenly strided rows),
+    maximize the DTC bound through the configured whitening engine (Z
+    fixed, as in the JAX package), then compute q(u) at the optimum.  ``exact``: maximize the dense exact likelihood under the
     additive GPAR kernel; the posterior's factors are recomputed from the
     parameters and the data at predict time, as in the JAX package."""
     if cfg.backend not in ("scaled", "exact"):
@@ -358,7 +358,11 @@ def fit_conditional(
     x0 = _params(init_params, 6 if cfg.separate_noise else 5, generator, cfg, device)
     order = torch.argsort(t, stable=True)
     t_s, X_s, y_s = t[order], X_prev[order], y[order]
-    Z = _select_pseudo_points(X_s, cfg.num_pseudo_points)
+    if Z is None:
+        Z = _select_pseudo_points(X_s, cfg.num_pseudo_points)
+    else:
+        Z = _as(Z, cfg, device)
+        Z = Z[:, None] if Z.ndim == 1 else Z
     at = _conditional_bound(cfg, t_s, X_s, y_s, Z)
     params, res = _train(cfg, lambda p: -at(dtc_objective, p), x0)
     with torch.no_grad():

@@ -1806,7 +1806,8 @@ def test_port_imports_no_jax():
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"gpar_at_scale_torch/api.py", "gpar_at_scale_torch/data/toy.py",
             "gpar_at_scale_torch/models/bayes.py", "gpar_at_scale_torch/inference/nuts.py",
-            "gpar_at_scale_torch/inference/diagnostics.py"} <= names
+            "gpar_at_scale_torch/inference/diagnostics.py",
+            "gpar_at_scale_torch/examples/eeg.py", "gpar_at_scale_torch/benchmarks/bench.py"} <= names
     offenders = [str(f.relative_to(REPO)) for f in files if pat.search(f.read_text())]
     assert offenders == []
 
@@ -3285,3 +3286,351 @@ def test_make_mesh_sizes_must_match_the_world(dist_results):
     size raise ValueError (as the JAX make_mesh does for its devices)."""
     _, ranks, _ = dist_results
     assert all(r["sizes_raise"] for r in ranks)
+
+
+# ---------------------------------------------------------------------------
+# The drivers: gpar_at_scale_torch/examples/ and gpar_at_scale_torch/benchmarks/
+# against the repo's scripts in examples/, benchmarks/ and bench.py.  The JAX
+# side runs in 4 fresh processes at once (tests/_jax_example_refs.py; their
+# compiles take the time), started at the file's first case
+# (``_example_refs_started``); the port's side runs in this worker, in the
+# module fixture ``example_results``.  Steps are cut where the scripts
+# fix them: 0 optimizer steps (every fit conditions on the script's starts)
+# where the optimizer is L-BFGS, whose iterates are no parity target; 3 Adam
+# steps (optax's Adam is the port's) where the script takes Adam.
+# ---------------------------------------------------------------------------
+
+_SCRIPT_GROUPS = (("chain",), ("eeg", "dtc"), ("scaled", "toy"), ("plot", "bench", "ess"))
+_CHAIN_SIZE = dict(N=600, P=3, M=4, steps=2, n_star=50)
+
+
+def _example_case():
+    from gpar_at_scale_torch.benchmarks import bench
+
+    rng = np.random.default_rng(3)
+    data = bench.bench_data("cpu", F64)
+    return dict(
+        toy_steps=0, plot_exact_steps=0, plot_steps=3, scaled_steps=3, bench_steps=3,
+        bench_data={k: _np(v) for k, v in zip(("t", "t_star", "X", "X_star", "y"), data)},
+        chain_argv=[str(_CHAIN_SIZE["N"]), f"--outputs={_CHAIN_SIZE['P']}",
+                    f"--m={_CHAIN_SIZE['M']}", f"--steps={_CHAIN_SIZE['steps']}",
+                    f"--nstar={_CHAIN_SIZE['n_star']}"],
+        ess_u=0.3 * rng.normal(size=(3, 5)), ess_draws=rng.normal(size=(4, 60, 5)))
+
+
+def _quiet(fn, *args, **kwargs):
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def _port_scripts(case):
+    """The port's side of every script case on the CPU, each entry the
+    script's results or the exception it raised."""
+    from gpar_at_scale_torch.benchmarks import bench, chain_scale, ess
+    from gpar_at_scale_torch.data.eeg import load_eeg
+    from gpar_at_scale_torch.data.toy import generate_small_dataset
+    from gpar_at_scale_torch.examples import dtc_example, eeg, plot_examples, scaled_examples
+    from gpar_at_scale_torch.examples import toy_example
+
+    cpu = torch.device(CPU)
+
+    def dtc():
+        k, d, diff = _quiet(dtc_example.compare_dtc_with_dense, device=cpu)
+        return dict(kalman=k, dense=d, diff=diff, dense_1e10=dtc_example.dense_dtc(uu_ridge=1e-10),
+                    kalman_f32=dtc_example.kalman_dtc(device=cpu, dtype=torch.float32,
+                                                      filter_fn="pallas"),
+                    optimum=_quiet(dtc_example.compare_optimum_params, device=cpu, max_opt_steps=3))
+
+    def plot():
+        exact = _quiet(plot_examples.exact_example, device=cpu, max_opt_steps=case["plot_exact_steps"])
+        temporal = _quiet(plot_examples.temporal_example, device=cpu, max_opt_steps=case["plot_steps"])
+        return exact, temporal
+
+    def eeg_chain():
+        ds = load_eeg(None, seed=0)
+        out = {"IGP": eeg.run_igp(ds, device=cpu, max_opt_steps=0)}
+        for backend in ("exact", "scaled"):
+            out[backend] = eeg.run(backend, ds, device=cpu, max_opt_steps=0)
+        return ds, out
+
+    def bench_run():
+        steps = bench.ADAM_STEPS
+        bench.ADAM_STEPS = case["bench_steps"]
+        try:
+            pipeline, _, _ = bench.bench_pipeline(cpu, F64)
+            return pipeline()
+        finally:
+            bench.ADAM_STEPS = steps
+
+    def ess_run():
+        depth = ess.MAX_DEPTH
+        ess.MAX_DEPTH = 3
+        try:
+            run = _quiet(ess.run, cpu, chains=2, num_samples=4, num_warmup=3)
+        finally:
+            ess.MAX_DEPTH = depth
+        lp, _ = ess.eeg_logpost(cpu, F64)
+        u = _t(case["ess_u"]).requires_grad_(True)
+        v = lp(u)
+        (g,) = torch.autograd.grad(v.sum(), u)
+        return dict(run=run, value=v.detach(), grad=g, diag=ess.diagnostics(case["ess_draws"]))
+
+    jobs = {
+        "dtc": dtc,
+        "toy": lambda: toy_example.run(device=cpu, max_opt_steps=case["toy_steps"]),
+        "plot": plot,
+        "scaled": lambda: _quiet(scaled_examples.run, generate_small_dataset(seed=0), 10,
+                                 case["scaled_steps"], "small", 3, device=cpu, plot=False),
+        "eeg": eeg_chain,
+        "bench": bench_run,
+        "chain": lambda: _quiet(chain_scale.run, **_CHAIN_SIZE, device=cpu),
+        "ess": ess_run,
+    }
+    out = {}
+    for name, job in jobs.items():
+        try:
+            out[name] = job()
+        except Exception as exc:  # raised again by the script's test
+            out[name] = exc
+    return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _example_refs_started(request):
+    """Start the drivers' JAX references at this file's first case, when the
+    session runs any case that needs them: their compiles then overlap the
+    file's other cases instead of adding to its wall time.  Yields (case,
+    pending results) or None."""
+    if not any("example_results" in getattr(item, "fixturenames", ())
+               for item in request.session.items):
+        yield None
+        return
+    import multiprocessing
+
+    from _jax_example_refs import references
+
+    case = _example_case()
+    pool = multiprocessing.get_context("spawn").Pool(len(_SCRIPT_GROUPS))
+    try:
+        yield case, [pool.apply_async(references, (case, names)) for names in _SCRIPT_GROUPS]
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+@pytest.fixture(scope="module")
+def example_results(_example_refs_started):
+    """{script: (the port's results, the JAX script's references)}."""
+    case, pending = _example_refs_started
+    port = _port_scripts(case)
+    refs = {}
+    for p in pending:
+        refs.update(p.get(timeout=600))
+    return {name: (port[name], refs[name]) for name in port}
+
+
+def _script_results(example_results, name):
+    port, ref = example_results[name]
+    if isinstance(port, Exception):
+        raise port
+    return port, ref
+
+
+def test_dtc_example_matches_jax(example_results):
+    """examples/dtc_example.py part (a): the port's Kalman-whitened bound
+    (sequential filter, float64) equals the JAX script's within 1e-10
+    relative, and the port's dense reference with the JAX script's K_uu
+    ridge 1e-10 gives the dense number the JAX script prints (6 decimals:
+    atol 1e-6).  That script's own assertion fails (its dense side leaves
+    out the noise ridge that dtc_objective's uu_ridge="auto" adds); the
+    port's dense side adds it, and the port passes the assertion,
+    diff < 1e-5 |dense|, in float64 and on the kernels' plain versions in
+    float32 (filter_fn="pallas").  Part (b) runs at 3 L-BFGS steps (its
+    iterates are no parity target) to a finite table."""
+    port, ref = _script_results(example_results, "dtc")
+    assert ref["assertion_held"] is False
+    _close(port["kalman"], ref["kalman"], rtol=1e-10)
+    _close(port["dense_1e10"], ref["dense"], rtol=0, atol=1e-6)
+    assert port["diff"] < 1e-5 * abs(port["dense"])
+    assert abs(port["kalman_f32"] - port["dense"]) < 1e-5 * abs(port["dense"])
+    fe, fs = port["optimum"]
+    assert np.isfinite(fe.hyperparams()).all() and np.isfinite(fs.hyperparams()).all()
+
+
+def test_toy_example_matches_jax(example_results):
+    """examples/toy_example.py with every fit on the script's starts (0
+    L-BFGS steps): the IGP and GPAR SMSE table within 1e-9 relative."""
+    port, ref = _script_results(example_results, "toy")
+    _close(np.asarray(port["smse"]), ref["smse"], rtol=1e-9)
+    for fit, want in zip([f for f, _, _ in port["igp"]], ref["igp"]):
+        _close(fit.params, want, rtol=1e-12)
+
+
+def test_plot_examples_match_jax(example_results):
+    """examples/plot_examples.py: the exact GP on the script's start (0
+    L-BFGS steps), its predictive mean and SMSE within 1e-9 relative; the
+    temporal GP on the big set (N = 8496) after 3 Adam steps, the port's
+    likelihood on the kernels' float32 plain versions against the JAX
+    script's float64 sequential filter: the log-parameters within 1e-5
+    (Adam's early steps are near lr * sign(g)), the predictive mean within
+    1e-4 of its largest magnitude and the in-range SMSE within 1e-4
+    relative."""
+    (exact, temporal), ref = _script_results(example_results, "plot")
+    _, _, mu_e, _, fit_e = exact
+    _close(fit_e.params, ref["exact"], rtol=1e-12)
+    _close(mu_e, ref["exact_mu"], rtol=1e-9, atol=1e-12)
+    _, _, mu_t, var_t, fit_t, score_t = temporal
+    _close(fit_t.params, ref["temporal"], rtol=0, atol=1e-5)
+    _near(mu_t, ref["temporal_mu"], 1e-4)
+    _close(score_t, ref["temporal_smse"], rtol=1e-4)
+
+
+def test_scaled_examples_match_jax(example_results):
+    """examples/scaled_examples.py on the small set at 3 Adam steps, float64
+    on both sides: every output's log-parameters within 1e-8 relative and
+    the in-range SMSE of each output within 1e-8 relative."""
+    port, ref = _script_results(example_results, "scaled")
+    got = [port["model"].first.params] + [c.params for c in port["model"].conditionals]
+    for g, w in zip(got, ref["params"]):
+        _close(g, w, rtol=1e-8)
+    _close(np.asarray(port["smse"]), ref["smse"], rtol=1e-8)
+
+
+def test_eeg_example_matches_jax(example_results):
+    """examples/eeg.py's run_igp and run (exact and scaled) with every fit
+    on the script's starts (0 steps): the chain's glue, FZ -> F1 -> F2 with
+    the predicted means fed forward.  Each channel's predictive mean and
+    variance within 1e-8 of its largest magnitude (the port's IGP predicts
+    by dense conditioning where the JAX script runs its RTS smoother)."""
+    (ds, port), ref = _script_results(example_results, "eeg")
+    for model in ("IGP", "exact", "scaled"):
+        for ch in ("FZ", "F1", "F2"):
+            mu, var, _ = port[model][ch]
+            _near(mu, ref[model][ch][0], 1e-8)
+            _near(var, ref[model][ch][1], 1e-8)
+
+
+def test_bench_matches_jax(example_results):
+    """bench.py's pipeline on the port (``benchmarks/bench.py::
+    bench_pipeline``) in float64 at 3 Adam steps against the same pipeline
+    on the JAX package's functions: the log-parameters and the last loss
+    within 1e-9 relative, the predictive mean and variance within 1e-8 of
+    their largest magnitudes."""
+    (res, _, pred), ref = _script_results(example_results, "bench")
+    _close(res.params, ref["params"], rtol=1e-9)
+    _close(float(res.value), ref["loss"], rtol=1e-9)
+    _near(pred.mean, ref["mean"], 1e-8)
+    _near(pred.var, ref["var"], 1e-8)
+
+
+def test_chain_scale_matches_jax(example_results):
+    """benchmarks/chain_scale.py at N = 600, P = 3, M = 4, 2 Adam steps, N* =
+    50 (float32 on both sides: the port's kernels' plain versions, the JAX
+    script's blocked engine with its host-float64 M x M algebra) against
+    the lines the JAX script prints (4 decimals): each output's rmse and
+    each conditional's first and last nll/N within 2e-4.  The JAX script's
+    coverage cov2s cannot fail (its band holds the observation noise): it is
+    1 here; the latent band's share lies in [0, 1]."""
+    port, ref = _script_results(example_results, "chain")
+    _close(np.asarray(port["rmse"]), ref["rmse"], rtol=0, atol=2e-4)
+    nll = [(_np(f.opt.trace)[0] / _CHAIN_SIZE["N"], _np(f.opt.trace)[-1] / _CHAIN_SIZE["N"])
+           for f in port["fits"][1:]]
+    _close(np.asarray(nll), ref["nll"], rtol=0, atol=2e-4)
+    assert all(c == 1.0 for c in port["cov2s"]) and all(0.0 <= c <= 1.0 for c in port["cov2f"])
+
+
+def test_ess_script_matches_jax(example_results):
+    """benchmarks/ess.py: the log-density it samples (the FZ conditional
+    through bounded_reparam(3.0), strided pseudo-points, float64) and its
+    gradient at 3 points within 1e-9 relative of the JAX script's; the
+    script's diagnostics (split R-hat, multi-chain ESS, per-chain Geyer sum)
+    on the same draws within 1e-10 relative; and a run of 2 chains of 3 + 4
+    transitions (depth cut to 3) with finite draws inside the bound."""
+    port, ref = _script_results(example_results, "ess")
+    _close(port["value"], ref["value"], rtol=1e-9)
+    _close(port["grad"], ref["grad"], rtol=1e-9, atol=1e-9)
+    for got, key in zip(port["diag"], ("rhat", "ess", "geyer")):
+        _close(got, ref[key], rtol=1e-10)
+    run = port["run"]
+    assert run["pooled"].shape == (2, 4, 5) and np.isfinite(run["pooled"]).all()
+    assert (np.abs(run["pooled"]) < 3.0).all() and run["total"] == 8
+
+
+def test_batched_predictive_matches_sequential(monkeypatch):
+    """gp/dtc.py::predict_scaled_batch against B = 6 calls of predict_scaled
+    on one cached q(u) (bench.py's request, N = 156, N* = 100, float64):
+    means and variances within 1e-12 of their largest magnitudes; under
+    "interpret" in float32 (the kernels' plain versions: one batched K6a
+    and two K6b calls) within 1e-4 of the float64 result; above
+    DENSE_N_MAX spliced steps it raises ValueError, and a kernel that is not
+    stationary raises TypeError."""
+    from gpar_at_scale_torch.benchmarks import bench
+    from gpar_at_scale_torch.gp.dtc import predict_scaled_batch
+
+    cpu = torch.device(CPU)
+    pipeline, predict, predict_batch = bench.bench_pipeline(cpu, F64)
+    monkeypatch.setattr(bench, "ADAM_STEPS", 2)
+    res, qu, _ = pipeline()
+    P = res.params[None] + _t(0.05 * np.random.default_rng(4).normal(size=(6, 5)))
+    got = predict_batch(P, qu)
+    assert got.mean.shape == got.var.shape == (6, bench.N_STAR)
+    for i in range(6):
+        want = predict(P[i], qu)
+        _near(got.mean[i], _np(want.mean), 1e-12)
+        _near(got.var[i], _np(want.var), 1e-12)
+    monkeypatch.setenv("GPAR_PALLAS_DENSE_INTERPRET", "1")
+    _, predict32, batch32 = bench.bench_pipeline(cpu, torch.float32)
+    qu32 = type(qu)(*(x.float() for x in qu))
+    got32 = batch32(P.float(), qu32)
+    _near(got32.mean, _np(got.mean), 1e-4)
+    _near(got32.var, _np(got.var), 1e-4)
+    t, t_star, X, X_star, y = bench.bench_data(cpu, F64)
+    k = tk.Matern52(lengthscale=torch.ones(2, dtype=F64), variance=torch.ones(2, dtype=F64))
+    long_t = torch.linspace(0, 40, 2000, dtype=F64)
+    with pytest.raises(ValueError, match="DENSE_N_MAX"):
+        predict_scaled_batch(k, k, qu, X[:1].expand(2000, -1), long_t, long_t, t_star, X_star,
+                             torch.ones(2, dtype=F64))
+    with pytest.raises(TypeError, match="stationary"):
+        predict_scaled_batch(k + k, k, qu, X, t, y, t_star, X_star, torch.ones(2, dtype=F64))
+
+
+def test_mfu_small_rows():
+    """benchmarks/mfu.py --small on the CPU: its five rows with the flop
+    counts of the JAX script by hand (the Gram 2 N (M + 1)^2 at N = 20000,
+    M = 64, in float32, float64 and bf16; Cholesky plus solve n^3 / 3 +
+    n^2 m at 256; the control 2 k^3 at 512), each share of its precision's
+    peak equal to the FLOP/s over it."""
+    from gpar_at_scale_torch.benchmarks import mfu
+
+    rows = _quiet(mfu.run, torch.device(CPU), reps=1, small=True)
+    want = [2.0 * 20_000 * 65**2] * 3 + [256**3 / 3 + 256**2 * 256, 2.0 * 512**3]
+    assert [r["flops"] for r in rows] == want
+    assert [r["precision"] for r in rows] == ["f32", "f64", "bf16", "f32", "bf16"]
+    for r in rows:
+        assert r["ms"] > 0 and math.isclose(r["pct_of_peak"],
+                                            100 * r["gflops_per_s"] * 1e9 / mfu.PEAK[r["precision"]])
+    src = (REPO / "bench.py").read_text()
+    from gpar_at_scale_torch.benchmarks import bench
+
+    assert bench.pipeline_flops() == 3.0 * 50 * (156**3 / 3 + 156**2 * 157 + 2 * 156**3
+                                                  + 156**3 / 3 + 2 * 156 * 156 * 3)
+    for key in ("metric", "value", "unit", "vs_baseline", "mfu", "gflops_per_s"):
+        assert f'"{key}"' in src
+
+
+_SCRIPT_MODULES = ("examples.dtc_example", "examples.toy_example", "examples.plot_examples",
+                   "examples.scaled_examples", "examples.eeg", "benchmarks.bench",
+                   "benchmarks.mfu", "benchmarks.chain_scale", "benchmarks.ess")
+
+
+@pytest.mark.parametrize("name", _SCRIPT_MODULES)
+def test_scripts_default_to_cuda(name, monkeypatch):
+    """Every driver runs on the card unless given --cpu: without a card its
+    main raises before any work (device.py::resolve_device)."""
+    mod = importlib.import_module(f"gpar_at_scale_torch.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
