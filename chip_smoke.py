@@ -82,9 +82,10 @@ Phases, each of which fails the run:
    ``blocked_posterior_sample``: the filter with moments on K1/K2, the
    sampling pass on K4a/K4b with C = 4; the draws standardized by the
    smoothed moments, the kernels' draw against the tensor-code affine scan;
-14. smc -- ``smc_host`` at N = 1e6 (64 particles, 3 mutations, at most 20
-   stages), each particle's likelihood one call on K1/K2; the posterior
-   median within 10% of the truth; the smoothed predictive at it;
+14. smc -- ``benchmarks/million_smc.py --host`` through the port's module:
+   ``smc_host`` at N = 1e6 (64 particles, 3 mutations, at most 20 stages),
+   each particle's likelihood one call on K1/K2; the posterior median
+   within 10% of the truth; the smoothed predictive at it;
 15. nuts -- ``benchmarks/ess.py --full`` under "on" through the port's
    ``gpar_at_scale_torch/benchmarks/ess.py::run``: NUTS, 8 chains in
    lockstep, over the EEG FZ conditional (N = M = 156, float32, bounded
@@ -92,7 +93,8 @@ Phases, each of which fails the run:
    R-hat, ESS, divergences; each chain's last draw against float64 "off";
    the float32 type-II algebra's gap to the float64 logpost; the predictive
    mixture's SMSE beside the type-II fit's;
-16. nuts-smc -- ``benchmarks/nuts_vs_smc.py`` at N = 1e5: NUTS (2 chains,
+16. nuts-smc -- ``benchmarks/nuts_vs_smc.py --pallas`` at N = 1e5, through
+   the port's module: NUTS (2 chains,
    gradients through K1/K2 and K4a/K4b) and ``smc_host`` (64 particles) on
    the same temporal likelihood; posterior means within 4 MC errors; the
    kernel path's value and gradient at the last draws against the float64
@@ -138,8 +140,14 @@ Phases, each of which fails the run:
    K4a/K4b); ``chain_scale --outputs=2 --steps=2`` at N = 1e6 (K1-K4b, the
    latent band's coverage near 0.95); ``mfu``'s rows (the Gram at N = 1e6,
    M = 256 in float32, float64 and bf16, the dense whitening at 2048, the
-   bf16 control).  The float64 scripts at N <= 2048 are held against the
-   same function on the CPU.
+   bf16 control); then, at N = 1e6, M = 32, ``million_dtc`` rows (a), (b)
+   (3 Adam steps), (c) with ``--check`` and (c) against gp/dtc.py's float64
+   predictive, ``million_grad --pallas``, ``long_series`` (every row, the
+   kernel rows too; seq at N = 5e3), ``pod_scale`` phase A (64 chains) and
+   ``scaling`` with ``--weak`` at 1 and 2 ranks.  The float64 scripts at
+   N <= 2048 are held against the same function on the CPU.  The data and
+   functions of the [ffbs], [smc], [nuts-smc], [segmented], [mixed-bwd] and
+   [dist] seq paths come from the port's ``benchmarks/`` modules.
 
 Phase 3 also runs the Monte-Carlo predictive ([mc]): the served chain's
 last conditional with ``predict_scaled(num_samples=100, generator=...)``
@@ -1527,6 +1535,42 @@ SCRIPT_CPU_RTOL = 1e-2
 # predictive latent variance, near 0.95 (0.92 and 0.96 on a CPU at N = 5e4
 # after 2 Adam steps); a variance off by a factor 2 gives 0.84 or 0.995.
 CHAIN_COV_BAND = (0.87, 0.99)
+# [scripts], this slice's drivers at N = 1e6, M = 32 (benchmarks/ of the JAX
+# package; their flags and defaults in each port module's docstring), cut:
+#   million_dtc  -- rows (a), (b) at 3 Adam steps (the script's 20) and (c);
+#                   --check at the largest N <= 1e6 where the float64 engine
+#                   fits, with the script's bounds (bound rel < 1e-5, gradient
+#                   rel < 1e-4 of its largest component); (c) on the kernels
+#                   held to gp/dtc.py's predict_scaled in float64 on the same
+#                   q(u): means within DTC_PRED_SD predictive sd, sd within
+#                   DTC_PRED_SD of itself ([segmented]'s smoother bound;
+#                   measured 7e-5 and 1.3e-5 on a CPU at N = 2e4);
+#   million_grad --pallas at 5 Adam steps (the script's 30): nll/N falls;
+#   long_series  -- every row at N = 1e6 (segments of LONG_SEGMENT, 3 timed
+#                   calls each) and the seq row with the blocked filter at
+#                   LONG_SEQ_N (the port's sequential filter is a loop of N
+#                   steps): every filter's ll within ASSOC_LL_RTOL of the
+#                   kernel filter's ([assoc]'s bound: float32 recursions in
+#                   other orders), every smoother's means and sd within
+#                   SEG_SMOOTH_SD of the kernel smoother's in its sd, the draws
+#                   of ffbs and segsample standardized by those moments with
+#                   |mean| <= LONG_Z_MEAN and |mean square - 1| <= LONG_Z_MS
+#                   (4 x 1e6 values correlated over about 200 steps: a
+#                   standard error of about 0.01; a draw of the wrong variance
+#                   by 20% fails);
+#   pod_scale    -- phase A at 64 chains, 3 outputs (the script's 16), 5 + 5
+#                   draws (200 + 150), one rank (NCCL); phase B is [dist] seq;
+#   scaling      -- 8 chains per rank at 5 + 5 draws, D = 1 (NCCL) and
+#                   D = 2 (gloo, sharing the card); --weak at its 65536 steps
+#                   per rank, each D's ll against the unsharded kernel filter's
+#                   at the same N, [dist]'s bound (FULL_TRACE_ATOL on ll / N).
+# million_smc --host is [smc] and nuts_vs_smc is [nuts-smc]: each runs once,
+# there, through its module.
+DTC_STEPS, DTC_PRED_SD = 3, 1e-2
+GRAD_STEPS = 5
+LONG_SEGMENT, LONG_SEQ_N, LONG_REPS, LONG_Z_MEAN, LONG_Z_MS = 250_000, 5_000, 3, 0.05, 0.1
+POD_OUTPUTS, POD_CHAINS, POD_DRAWS = 3, 64, 5
+SCALING_CHAINS, SCALING_DRAWS, SCALING_RANKS, SCALING_WEAK_N = 8, 5, 2, 65536
 
 
 def _rel(got, want):
@@ -1546,6 +1590,162 @@ def _quietly(fn, *args, **kwargs):
         return fn(*args, **kwargs)
 
 
+def _check(tag, ok_, text, failures):
+    _log(f"[scripts] {tag}: {text} {'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append(f"[scripts] {tag}: {text}")
+
+
+def million_dtc_script(counted, failures):
+    """million_dtc rows (a), (b), (c) at N = 1e6, M = 32, then ``--check``
+    and (c) against the float64 predictive on the same q(u)."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.benchmarks import million_dtc
+    from gpar_at_scale_torch.ops import K1, K2, K3, K4A, K4B
+
+    out = counted("million_dtc (a) (b) (c)", lambda: million_dtc.run(
+        N, M, DTC_STEPS, N_STAR, device=_DEV), want=(K1, K2, K3, K4A, K4B))
+    nll = out["nll"]
+    _check("million_dtc (b)", bool(np.isfinite(nll).all() and nll[-1] < nll[0]
+                                   and np.isfinite(out["G"]).all()),
+           f"nll/N {np.round(nll, 6).tolist()} falls, the Gram finite", failures)
+    prob = million_dtc.problem(N, M, N_STAR, _DEV)
+    p0 = million_dtc.start(_DEV)
+    mean_r, var_r = million_dtc.predict_reference(prob, p0, out["qu"])
+    sd = torch.sqrt(var_r)
+    mu, var = (torch.as_tensor(x, device=sd.device) for x in (out["mean"], out["var"]))
+    d_mean = float(((mu - mean_r) / sd).abs().max())
+    d_sd = float(((torch.sqrt(var) - sd) / sd).abs().max())
+    _check("million_dtc (c)", d_mean <= DTC_PRED_SD and d_sd <= DTC_PRED_SD
+           and out["rmse"] < prob.sn,
+           f"kernels vs float64 predict_scaled on the same q(u): means {d_mean:.2e} sd, sd "
+           f"{d_sd:.2e} (<= {DTC_PRED_SD}); rmse vs latent {out['rmse']:.4f} (< noise {prob.sn})",
+           failures)
+    del prob, mean_r, var_r, sd
+    n = N
+    while True:
+        try:
+            _reset_peak()
+            dv, dg, rg, _, _ = counted(f"million_dtc --check N={n:,}", lambda: million_dtc.check(
+                million_dtc.problem(n, M, 0, _DEV)), want=(K1, K2, K3, K4A, K4B))
+            break
+        except torch.cuda.OutOfMemoryError:
+            _log(f"[scripts] million_dtc --check: the float64 engine at N={n:,} ran out of memory")
+            n //= 2
+    _check(f"million_dtc --check N={n:,}", dv < million_dtc.CHECK_VALUE_RTOL
+           and rg < million_dtc.CHECK_GRAD_RTOL,
+           f"staged float32 kernels vs float64 blocked engine: bound rel {dv:.2e} "
+           f"(< {million_dtc.CHECK_VALUE_RTOL}), gradient max abs {dg:.3e}, rel {rg:.2e} "
+           f"(< {million_dtc.CHECK_GRAD_RTOL}); peak device memory {_peak():.2f} GiB", failures)
+
+
+def million_grad_script(counted, failures):
+    """million_grad --pallas at N = 1e6, GRAD_STEPS Adam steps."""
+    import numpy as np
+
+    from gpar_at_scale_torch.benchmarks import million_grad
+    from gpar_at_scale_torch.ops import K1, K2, K4A, K4B
+
+    out = counted("million_grad --pallas", lambda: million_grad.run(
+        N, GRAD_STEPS, "pallas", device=_DEV), want=(K1, K2, K4A, K4B))
+    nll = out["nll"]
+    _check("million_grad --pallas", bool(np.isfinite(nll).all() and nll[-1] < nll[0]),
+           f"nll/N {np.round(nll, 6).tolist()} falls; {out['step_ms']:.2f} ms/step", failures)
+
+
+def long_series_script(counted, failures):
+    """long_series' rows at N = 1e6 and seq at LONG_SEQ_N, held to each
+    other."""
+    import torch
+
+    from gpar_at_scale_torch.benchmarks import long_series
+    from gpar_at_scale_torch.ops import K1, K2, K4A, K4B
+
+    rows = [r for r in long_series.ROWS if r != "seq"]
+    out = counted("long_series --pallas and its rows", lambda: long_series.run(
+        N, rows, device=_DEV, reps=LONG_REPS, segment=LONG_SEGMENT), want=(K1, K2, K4A, K4B))
+    ll_k = float(out["pallas filter"]["out"][0])
+    lls = {r: float(out[r]["out"][0]) for r in ("filter", "segfilter", "assoc")}
+    gaps = {r: abs(v - ll_k) / abs(ll_k) for r, v in lls.items()}
+    _check("long_series filters", all(g <= ASSOC_LL_RTOL for g in gaps.values()),
+           "ll vs the kernel filter's " + ", ".join(f"{r} {g:.2e}" for r, g in gaps.items())
+           + f" (rel <= {ASSOC_LL_RTOL})", failures)
+    m_k, v_k = (x.double() for x in out["pallas smooth"]["out"])
+    sd = torch.sqrt(v_k)
+    sm = {}
+    for r in ("smooth", "smooth-split", "segsmooth"):
+        m, v = (x.double() for x in out[r]["out"])
+        sm[r] = (float(((m - m_k) / sd).abs().max()), float(((torch.sqrt(v) - sd) / sd).abs().max()))
+    _check("long_series smoothers", all(max(g) <= SEG_SMOOTH_SD for g in sm.values()),
+           "vs the kernel smoother, max |mean - .| / sd, max |sd - .| / sd: "
+           + ", ".join(f"{r} {a:.2e}, {b:.2e}" for r, (a, b) in sm.items())
+           + f" (<= {SEG_SMOOTH_SD})", failures)
+    zs = {}
+    for r in ("ffbs", "segsample"):
+        z = ((out[r]["out"][0].double() - m_k[None]) / sd[None])
+        zs[r] = (float(z.mean()), float((z * z).mean()))
+    _check("long_series draws", all(abs(a) <= LONG_Z_MEAN and abs(b - 1) <= LONG_Z_MS
+                                   for a, b in zs.values()),
+           "standardized by the kernel smoother's moments, mean and mean square: "
+           + ", ".join(f"{r} {a:.4f}, {b:.4f}" for r, (a, b) in zs.items())
+           + f" (|mean| <= {LONG_Z_MEAN}, |ms - 1| <= {LONG_Z_MS})", failures)
+    del out, m_k, v_k, sd
+    seq = counted(f"long_series seq at N={LONG_SEQ_N:,}", lambda: long_series.run(
+        LONG_SEQ_N, ("filter", "seq"), device=_DEV, reps=1))
+    g = abs(float(seq["seq"]["out"][0]) - float(seq["filter"]["out"][0])) / LONG_SEQ_N
+    _check("long_series seq", g <= FULL_TRACE_ATOL,
+           f"the sequential filter's ll vs the blocked filter's at N={LONG_SEQ_N:,}: {g:.2e} per "
+           f"step (<= {FULL_TRACE_ATOL})", failures)
+
+
+def pod_scale_script(counted, failures):
+    """pod_scale phase A at POD_CHAINS chains, one rank."""
+    import numpy as np
+
+    from gpar_at_scale_torch.benchmarks import pod_scale
+
+    res = counted("pod_scale phase A", lambda: pod_scale.run(
+        device=_DEV, ranks=1, outputs=POD_OUTPUTS, chains=POD_CHAINS, samples=POD_DRAWS,
+        warmup=POD_DRAWS, phases="A"), none=True)
+    means = res[0]["chain_means"]
+    _check("pod_scale phase A", bool(np.isfinite(means).all()) and len(means) == POD_OUTPUTS - 1,
+           f"{POD_CHAINS} chains x {POD_OUTPUTS - 1} conditionals, {res[0]['chain_sps']:.1f} "
+           f"samples/s, draws' means {np.round(means, 4).tolist()} finite", failures)
+
+
+def scaling_script(counted, failures):
+    """scaling and scaling --weak at D = 1 and D = 2."""
+    import numpy as np
+    import torch
+
+    from gpar_at_scale_torch.benchmarks import scaling
+    from gpar_at_scale_torch.ops import K1, K2
+    from gpar_at_scale_torch.ops.kalman import decorrelate_blocked
+
+    summed = lambda rows: {k: sum(r[-1][k] for r in rows) for k in rows[0][-1]}  # noqa: E731
+    strong = counted("scaling", lambda: scaling.strong(
+        device=_DEV, ranks=SCALING_RANKS, chains_per_device=SCALING_CHAINS, samples=SCALING_DRAWS,
+        warmup=SCALING_DRAWS), none=True, ranks=lambda rows: summed(rows[1:]))
+    _check("scaling", all(np.isfinite(r[3]).all() for r in strong),
+           "samples/s " + ", ".join(f"D={r[0]} {r[1]:.1f}" for r in strong)
+           + " (the ranks share one card and host: no scaling claim); draws finite", failures)
+    weak = counted("scaling --weak", lambda: scaling.weak(device=_DEV, ranks=SCALING_RANKS,
+                                                          n_per_device=SCALING_WEAK_N),
+                   want=(K1, K2), ranks=lambda rows: summed(rows[1:]))
+    gaps = []
+    for D, n, _, lls, _ in weak:
+        _, y, lg = scaling.weak_series(n, _DEV)
+        with torch.no_grad():
+            ref = float(decorrelate_blocked(lg, y)[0])
+        gaps.append(max(abs(v - ref) for v in lls) / n)
+    _check("scaling --weak", all(g <= FULL_TRACE_ATOL for g in gaps),
+           "ll of every rank vs the unsharded kernel filter's at the same N, per step: "
+           + ", ".join(f"D={r[0]} {g:.2e}" for r, g in zip(weak, gaps))
+           + f" (<= {FULL_TRACE_ATOL})", failures)
+
+
 def scripts_phase(failures):
     """[scripts] The repo's drivers on the port, each through its module's
     functions: ``dtc_example`` part (a) in float64 (the script's assertion)
@@ -1553,9 +1753,11 @@ def scripts_phase(failures):
     ``toy_example``; ``scaled_examples`` on the small set and with
     ``--big`` (K1-K4b); ``plot_examples`` (the temporal GP on K1/K2 and
     K4a/K4b); ``chain_scale --outputs=2 --steps=2`` at N = 1e6 (K1-K4b);
-    ``mfu``'s rows.  The float64 scripts at N <= 2048 are held against the
-    same function on the CPU.  Returns the launches of every kernel in the
-    phase."""
+    ``mfu``'s rows; then ``million_dtc``, ``million_grad --pallas``,
+    ``long_series``, ``pod_scale`` phase A and ``scaling`` (``--weak`` too)
+    at N = 1e6, M = 32, cut as the constants above say.  The float64
+    scripts at N <= 2048 are held against the same function on the CPU.
+    Returns the launches of every kernel in the phase."""
     import numpy as np
     import torch
 
@@ -1569,15 +1771,18 @@ def scripts_phase(failures):
     total = {k: 0 for k in _all_counts()}
     t_phase = time.perf_counter()
 
-    def counted(tag, fn, want=(), none=False):
-        """fn() with the kernels' launches read around it; every kernel in
-        ``want`` must launch, none at all with ``none``."""
+    def counted(tag, fn, want=(), none=False, ranks=None):
+        """fn() with the kernels' launches read around it, plus those
+        ``ranks(out)`` reports from spawned ranks; every kernel in ``want``
+        must launch, none at all with ``none``."""
         before = _all_counts()
         t0 = time.perf_counter()
         out = fn()
         _sync(_DEV)
         secs = time.perf_counter() - t0
         got = {k: c - before[k] for k, c in _all_counts().items()}
+        for k, c in (ranks(out) if ranks else {}).items():
+            got[k] += c
         for k in got:
             total[k] += got[k]
         ok_ = all(got[k.name] > 0 for k in want) and not (none and any(got.values()))
@@ -1663,6 +1868,13 @@ def scripts_phase(failures):
     finite &= all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows)
     if not finite:
         failures.append("[scripts] a script gave non-finite numbers")
+
+    # this slice's drivers at N = 1e6, M = 32
+    million_dtc_script(counted, failures)
+    million_grad_script(counted, failures)
+    long_series_script(counted, failures)
+    pod_scale_script(counted, failures)
+    scaling_script(counted, failures)
     _log(f"[scripts] the phase in {time.perf_counter() - t_phase:.1f} s; finite {finite}")
     return total, rows
 
@@ -2206,20 +2418,10 @@ MIXED_M_CHECK, MIXED_M_TRAIN = 128, 256
 MIXED_START = (0.5, 1.0, 1.0, 0.7, 0.2)
 
 
-def million_smc_data(n):
-    """benchmarks/million_smc.py's data: (t, y, latent f), numpy float64."""
-    import numpy as np
-
-    rng = np.random.default_rng(0)
-    t = np.cumsum(rng.uniform(0.5, 1.5, n)) / 1000.0
-    f = 1.2 * np.sin(2 * np.pi * t / 7.0) * np.cos(2 * np.pi * t / 1.3)
-    return t, f + SMC_TRUTH[2] * rng.normal(size=n), f
-
-
 def _all_counts():
-    from gpar_at_scale_torch.ops import KERNELS
+    from gpar_at_scale_torch.ops import launch_counts
 
-    return {k.name: k.launches for k in KERNELS}
+    return launch_counts()
 
 
 def _zero_counts():
@@ -2227,45 +2429,6 @@ def _zero_counts():
 
     for k in KERNELS:
         k.launches = 0
-
-
-def _matern_lgssm(t, params):
-    """The float32 LGSSM of a Matern-5/2 temporal GP at log-parameters
-    ``params`` (3,)."""
-    import torch
-
-    from gpar_at_scale_torch.kernels import Matern52
-    from gpar_at_scale_torch.ssm.markov import lgssm_of
-    from gpar_at_scale_torch.utils.params import unpack_gp
-
-    l, sf, sn = unpack_gp(params)
-    return lgssm_of(Matern52(lengthscale=l, variance=sf**2), t, sn**2, torch.float32)
-
-
-def _kernel_loglik(t, y):
-    """One particle's log-likelihood on the kernel path (K1, phase 2, K2),
-    read back to the host: ``log_lik_batch`` of ``smc_host`` evaluates one
-    particle per call."""
-    import numpy as np
-    import torch
-
-    from gpar_at_scale_torch.ops.kalman import decorrelate_blocked
-
-    def batch(xs):
-        out = []
-        for x in np.asarray(xs):
-            with torch.no_grad():
-                lg = _matern_lgssm(t, torch.as_tensor(x, dtype=torch.float64, device=t.device))
-                out.append(float(decorrelate_blocked(lg, y)[0]))
-        return np.asarray(out)
-
-    return batch
-
-
-def _log_prior_batch(xs):
-    import numpy as np
-
-    return -0.5 * np.sum(np.asarray(xs) ** 2, axis=1) / 4.0
 
 
 def _phase_end(tag, t0, launches):
@@ -2291,6 +2454,7 @@ def ffbs_phase(seed, failures):
     import numpy as np
     import torch
 
+    from gpar_at_scale_torch.benchmarks.million_smc import matern_lgssm, million_smc_data
     from gpar_at_scale_torch.ops.kalman import decorrelate_blocked
     from gpar_at_scale_torch.ops.smoother import pallas_smooth, suffix_scan
     from gpar_at_scale_torch.ssm.blocked import (
@@ -2303,7 +2467,7 @@ def ffbs_phase(seed, failures):
     t_np, y_np, _ = million_smc_data(SMC_N)
     f32 = torch.float32
     t, y = torch.as_tensor(t_np).to(_DEV, f32), torch.as_tensor(y_np).to(_DEV, f32)
-    lg = _matern_lgssm(t, pack_gp(*(torch.tensor(v, dtype=torch.float64) for v in SMC_TRUTH)).to(_DEV))
+    lg = matern_lgssm(t, pack_gp(*(torch.tensor(v, dtype=torch.float64) for v in SMC_TRUTH)).to(_DEV))
     gen = torch.Generator(device=_DEV).manual_seed(seed)
     if torch.device(_DEV).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -2350,7 +2514,8 @@ def ffbs_phase(seed, failures):
 
 
 def smc_phase(seed, failures):
-    """[smc] million_smc.py's host-driven default on the card: ``smc_host``
+    """[smc] million_smc.py's host-driven default on the card, through the
+    port's ``benchmarks/million_smc.py::run(host=True)``: ``smc_host``
     with 64 particles, 3 mutations, at most 20 stages, each particle's
     likelihood at N = 1e6 one call on the kernel path (K1/K2); then the
     smoothed predictive at the posterior median (K1/K2, K4a/K4b) and its
@@ -2358,33 +2523,25 @@ def smc_phase(seed, failures):
     import numpy as np
     import torch
 
-    from gpar_at_scale_torch.inference.smc import smc_host
-    from gpar_at_scale_torch.ops.smoother import pallas_smooth
-    from gpar_at_scale_torch.utils.params import unconstrain
+    from gpar_at_scale_torch.benchmarks import million_smc
 
-    t_np, y_np, f_np = million_smc_data(SMC_N)
-    f32 = torch.float32
-    t, y = torch.as_tensor(t_np).to(_DEV, f32), torch.as_tensor(y_np).to(_DEV, f32)
-    x0 = 0.5 * torch.randn((SMC_PARTICLES, 3), generator=torch.Generator().manual_seed(seed),
-                           dtype=torch.float64)
     if torch.device(_DEV).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     t0 = time.perf_counter()
-    res = smc_host(seed, _log_prior_batch, _kernel_loglik(t, y), x0.numpy(),
-                   num_mutations=SMC_MUTATIONS, ess_threshold=0.5, max_stages=SMC_STAGES)
-    launches = _all_counts()
-    secs = _phase_end("smc", t0, launches)
-    one = _kernel_loglik(t, y)
-    _log(f"[smc] one likelihood evaluation alone: {_time_ms(lambda: one(x0[:1]), 10):.3f} ms")
-    profile_phase("smc likelihood", lambda: one(x0[:1]))
-    med = np.exp(np.median(res.particles, axis=0)) + 1e-3
+    out = million_smc.run(SMC_N, SMC_PARTICLES, device=_DEV, host=True, mutations=SMC_MUTATIONS,
+                          max_stages=SMC_STAGES, seed=seed, verbose=False)
+    res, launches = out["result"], out["launches"]
+    _phase_end("smc", t0, launches)
+    secs = out["secs"]
+    t_np, y_np, _ = million_smc.million_smc_data(SMC_N)
+    t, y = (torch.as_tensor(a).to(_DEV, torch.float32) for a in (t_np, y_np))
+    one = million_smc.kernel_loglik(t, y)
+    x1 = million_smc.initial_particles(SMC_PARTICLES, seed)[:1]
+    _log(f"[smc] one likelihood evaluation alone: {_time_ms(lambda: one(x1), 10):.3f} ms")
+    profile_phase("smc likelihood", lambda: one(x1))
+    med, rmse, pred_s = out["median"], out["rmse"], out["predict_s"]
     rel = np.abs(med - np.asarray(SMC_TRUTH)) / np.asarray(SMC_TRUTH)
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        mean, _, _ = pallas_smooth(_matern_lgssm(t, unconstrain(torch.as_tensor(med)).to(_DEV)), y)
-    rmse = float(np.sqrt(np.mean((mean.double().cpu().numpy() - f_np) ** 2)))
-    pred_s = time.perf_counter() - t0
     ok_ = (res.final_beta == 1.0 and bool((rel <= SMC_RTOL).all()) and np.isfinite(rmse)
            and rmse < SMC_TRUTH[2] and all(launches[k.name] > 0 for k in _scan_kernels()[:2]))
     _log(f"[smc] N={SMC_N:,}, {SMC_PARTICLES} particles: {res.num_stages} stages, beta "
@@ -2565,68 +2722,38 @@ def f32_algebra_gap(t, X, y, pooled, seed):
              f"{np.median(gaps):.4g}, max {gaps.max():.4g} nats over the {gaps.size} others")
 
 
-def _blocked_temporal_logpost(t, y):
-    """``make_temporal_logpost``'s function on the float64 blocked engine
-    (``ssm/blocked_grad.py::blocked_loglik``, its closed-form gradient), on
-    the float32 inputs cast up, for a (C, 3) batch."""
-    import torch
-
-    from gpar_at_scale_torch.kernels import Matern52, time_kernel_only
-    from gpar_at_scale_torch.ssm.blocked_grad import blocked_loglik
-    from gpar_at_scale_torch.ssm.markov import lgssm_of
-    from gpar_at_scale_torch.utils.params import unpack_gp
-
-    t64, y64 = t.double(), y.double()
-
-    def logpost(q):
-        out = []
-        for qc in q:
-            l, sf, sn = unpack_gp(qc)
-            lg = lgssm_of(time_kernel_only(Matern52, l, sf), t64, sn**2, torch.float64)
-            out.append(blocked_loglik(lg, y64) - 0.5 * (qc * qc).sum() / 4.0)
-        return torch.stack(out)
-
-    return logpost
-
-
 def nuts_smc_phase(seed, failures):
-    """[nuts-smc] benchmarks/nuts_vs_smc.py at N = 1e5: NUTS on the temporal
-    GP's posterior with gradients through the kernel path
+    """[nuts-smc] benchmarks/nuts_vs_smc.py at N = 1e5 through the port's
+    ``benchmarks/nuts_vs_smc.py`` (its ``--pallas`` route): NUTS on the
+    temporal GP's posterior with gradients through the kernel path
     (``make_temporal_logpost``: K1/K2 forward, K4a/K4b backward, one chain
     per call), and ``smc_host`` on the same likelihood (K1/K2); the
     constrained posterior means must agree within 4 Monte-Carlo errors, and
     the kernel path's value and gradient at the last draws must match the
-    float64 blocked engine's.
+    float64 blocked engine's (``blocked_temporal_logpost``).
     Returns both samplers' launches."""
     import numpy as np
     import torch
 
-    from gpar_at_scale_torch.inference.diagnostics import means_agree_within_mc_error, summarize
+    from gpar_at_scale_torch.benchmarks import nuts_vs_smc
+    from gpar_at_scale_torch.benchmarks.million_smc import million_smc_data
     from gpar_at_scale_torch.inference.hmc import value_and_grad
-    from gpar_at_scale_torch.inference.nuts import nuts
-    from gpar_at_scale_torch.inference.smc import smc_host
-    from gpar_at_scale_torch.models.bayes import make_temporal_logpost
 
     t_np, y_np, _ = million_smc_data(NS_N)
     f32 = torch.float32
     t, y = torch.as_tensor(t_np).to(_DEV, f32), torch.as_tensor(y_np).to(_DEV, f32)
-    logpost = make_temporal_logpost(t, y, dtype=f32, device=_DEV)
-    gen = torch.Generator(device=_DEV).manual_seed(seed)
-    x0s = 0.3 * torch.randn((NS_CHAINS, 3), generator=gen, dtype=f32, device=_DEV)
     if torch.device(_DEV).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     t0 = time.perf_counter()
-    res = nuts(gen, value_and_grad(logpost), x0s, num_samples=NS_SAMPLES, num_warmup=NS_WARMUP,
-               max_depth=NS_DEPTH)
+    res, logpost, _ = nuts_vs_smc.run_nuts(t, y, NS_CHAINS, NS_SAMPLES, NS_WARMUP, route="pallas",
+                                           seed=seed, max_depth=NS_DEPTH)
     nuts_launches = _all_counts()
     nuts_s = _phase_end("nuts-smc", t0, nuts_launches)
-    chains = np.exp(res.samples.double().cpu().numpy()) + 1e-3
-    d_nuts = summarize(chains)
     # the kernel path's value and gradient at the last draws against the float64 blocked engine
     q = res.samples[:, -1]
     v_k, g_k = value_and_grad(logpost)(q)
-    v_r, g_r = value_and_grad(_blocked_temporal_logpost(t, y))(q.double())
+    v_r, g_r = value_and_grad(nuts_vs_smc.blocked_temporal_logpost(t, y))(q.double())
     v_gap = float((v_k.double() - v_r).abs().max()) / NS_N
     grads_ok = [_grad_gap(gk, gr, NS_N) for gk, gr in zip(g_k.double().cpu().numpy(),
                                                           g_r.cpu().numpy())]
@@ -2639,16 +2766,13 @@ def nuts_smc_phase(seed, failures):
     profile_phase("nuts-smc logpost call", lambda: vg(q1))
     _zero_counts()
     t0 = time.perf_counter()
-    x0 = 0.5 * torch.randn((SMC_PARTICLES, 3), generator=torch.Generator().manual_seed(seed + 1),
-                           dtype=torch.float64)
-    res_s = smc_host(seed, _log_prior_batch, _kernel_loglik(t, y), x0.numpy(),
-                     num_mutations=SMC_MUTATIONS, ess_threshold=0.5, max_stages=NS_STAGES)
+    res_s, _ = nuts_vs_smc.run_smc(t, y, SMC_PARTICLES, seed=seed, stages=NS_STAGES,
+                                   mutations=SMC_MUTATIONS)
     smc_launches = _all_counts()
     smc_s = _phase_end("nuts-smc", t0, smc_launches)
-    cloud = (np.exp(res_s.particles) + 1e-3)[None]
-    d_smc = summarize(cloud)
-    z = np.abs(d_nuts.mean - d_smc.mean) / np.sqrt(d_nuts.mcse**2 + d_smc.mcse**2)
-    agree = means_agree_within_mc_error(chains, cloud, z=4.0)
+    chains = np.exp(res.samples.double().cpu().numpy()) + 1e-3
+    d_nuts, d_smc, z, agree = nuts_vs_smc.compare(res.samples.double().cpu().numpy(),
+                                                  res_s.particles)
     n_div = int(res.num_divergent.sum())
     ok_ = (agree and engines_ok and res_s.final_beta == 1.0 and bool(np.isfinite(chains).all())
            and all(nuts_launches[k.name] > 0 for k in _scan_kernels() if not k.name.startswith("K3")))
@@ -2668,25 +2792,6 @@ def nuts_smc_phase(seed, failures):
     return {k: nuts_launches[k] + smc_launches[k] for k in nuts_launches}
 
 
-def million_grad_data(n, seed):
-    """benchmarks/million_grad.py's data, (t, y) numpy float64."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    t = np.cumsum(rng.uniform(0.5, 1.5, n)) / 1000.0
-    return t, np.sin(t * (2.0 / 0.9)) * 0.8 + 0.25 * rng.normal(size=n)
-
-
-def _matern52_gp(p):
-    """``kernel_fn`` of million_grad.py: log-parameters -> (Matern-5/2,
-    noise variance)."""
-    from gpar_at_scale_torch.kernels import Matern52
-    from gpar_at_scale_torch.utils.params import unpack_gp
-
-    l, sf, sn = unpack_gp(p)
-    return Matern52(lengthscale=l, variance=sf**2), sn**2
-
-
 def _reset_peak():
     import torch
 
@@ -2699,27 +2804,6 @@ def _peak():
     import torch
 
     return _peak_gib() if torch.device(_DEV).type == "cuda" else float("nan")
-
-
-def _fused_grad(t, y, p):
-    """(ll, g) of the fused kernel path (``logpdf_markov_pallas``, autograd
-    through the discretization) at log-parameters p."""
-    import torch
-
-    from gpar_at_scale_torch.ops.grad import logpdf_markov_pallas
-
-    p = p.detach().clone().requires_grad_(True)
-    k, nv = _matern52_gp(p)
-    ll = logpdf_markov_pallas(k, t, nv, y)
-    (g,) = torch.autograd.grad(ll, p)
-    return float(ll.detach()), g.double().cpu().numpy()
-
-
-def _seg_grad(t, y, p, segment, dtype):
-    from gpar_at_scale_torch.ssm.segmented import make_segmented_nll_grad
-
-    ll, g = make_segmented_nll_grad(_matern52_gp, t, y, segment, dtype=dtype)(p.to(dtype))
-    return float(ll), g.double().cpu().numpy()
 
 
 def _grad_line(tag, name, got, want, n, failures):
@@ -2738,14 +2822,15 @@ def segmented_grad_checks(t, y, p0, failures):
     import numpy as np
     import torch
 
+    from gpar_at_scale_torch.benchmarks.million_grad import fused_grad, matern52_gp, seg_grad
     from gpar_at_scale_torch.ssm.blocked_grad import blocked_loglik
     from gpar_at_scale_torch.ssm.markov import lgssm_of
 
     f32, f64 = torch.float32, torch.float64
     n = SEG_REF_N
-    ll_s, g_s = _seg_grad(t[:n], y[:n], p0, n // SEG_REF_SEGMENTS, f32)
+    ll_s, g_s = seg_grad(t[:n], y[:n], p0, n // SEG_REF_SEGMENTS, f32)
     p = p0.double().detach().requires_grad_(True)
-    k, nv = _matern52_gp(p)
+    k, nv = matern52_gp(p)
     ll_r = blocked_loglik(lgssm_of(k, t[:n], nv, f64), y[:n].double())
     (g_r,) = torch.autograd.grad(ll_r, p)
     _log(f"[segmented] N={n:,}: ll/N segmented float32 ({SEG_REF_SEGMENTS} segments) "
@@ -2758,7 +2843,7 @@ def segmented_grad_checks(t, y, p0, failures):
         _reset_peak()
         t0 = time.perf_counter()
         try:
-            ll_f, g_f = _fused_grad(t[:n], y[:n], p0)
+            ll_f, g_f = fused_grad(t[:n], y[:n], p0)
             break
         except torch.cuda.OutOfMemoryError:
             _log(f"[segmented] the fused kernel path's gradient at N={n:,} ran out of memory")
@@ -2766,9 +2851,9 @@ def segmented_grad_checks(t, y, p0, failures):
     fused_s, peak_f = time.perf_counter() - t0, _peak()
     _reset_peak()
     t0 = time.perf_counter()
-    ll_s, g_s = _seg_grad(t[:n], y[:n], p0, SEG_SIZE, f32)
+    ll_s, g_s = seg_grad(t[:n], y[:n], p0, SEG_SIZE, f32)
     seg_s, peak_s = time.perf_counter() - t0, _peak()
-    ll_r, g_r = _seg_grad(t[:n], y[:n], p0, SEG_SIZE, f64)
+    ll_r, g_r = seg_grad(t[:n], y[:n], p0, SEG_SIZE, f64)
     _log(f"[segmented] N={n:,} (the largest the fused path fit): ll/N fused float32 {ll_f / n:.10f}, "
          f"segmented float32 {ll_s / n:.10f}, segmented float64 {ll_r / n:.10f}; the gradient "
          f"fused {fused_s:.4f} s at {peak_f:.2f} GiB, segmented (segments of {SEG_SIZE:,}) "
@@ -2787,12 +2872,13 @@ def _smooth_check(t, y, p, failures):
     and both against the float64 segmented smoother, in posterior sd."""
     import torch
 
+    from gpar_at_scale_torch.benchmarks.million_grad import matern52_gp
     from gpar_at_scale_torch.ops.smoother import pallas_smooth
     from gpar_at_scale_torch.ssm.markov import lgssm_of
     from gpar_at_scale_torch.ssm.segmented import segmented_smooth_t
 
     f32 = torch.float32
-    k, nv = _matern52_gp(p.double())
+    k, nv = matern52_gp(p.double())
     _sync(_DEV)
     t0 = time.perf_counter()
     seg = segmented_smooth_t(k, t, nv, y, SEG_SIZE, dtype=f32)
@@ -2865,6 +2951,7 @@ def segmented_phase(seed, failures):
     import numpy as np
     import torch
 
+    from gpar_at_scale_torch.benchmarks.million_grad import matern52_gp, million_grad_data
     from gpar_at_scale_torch.ssm.segmented import SEGMENT_SIZE, make_segmented_nll_grad
     from gpar_at_scale_torch.utils.params import pack_gp
 
@@ -2877,9 +2964,9 @@ def segmented_phase(seed, failures):
     n_fused, peak_fused, peak_seg_n = segmented_grad_checks(t, y, p0, failures)
 
     _reset_peak()
-    make_segmented_nll_grad(_matern52_gp, t[:SEG_SIZE], y[:SEG_SIZE], SEG_SIZE, dtype=f32)(p0)
+    make_segmented_nll_grad(matern52_gp, t[:SEG_SIZE], y[:SEG_SIZE], SEG_SIZE, dtype=f32)(p0)
     peak_one = _peak()
-    grad_fn = make_segmented_nll_grad(_matern52_gp, t, y, SEG_SIZE, dtype=f32)
+    grad_fn = make_segmented_nll_grad(matern52_gp, t, y, SEG_SIZE, dtype=f32)
     p = p0.clone().requires_grad_(True)
     opt = torch.optim.Adam([p], lr=SEG_LR)
     trace = []
@@ -2912,7 +2999,7 @@ def segmented_phase(seed, failures):
     _reset_peak()
     _sync(_DEV)
     t0 = time.perf_counter()
-    make_segmented_nll_grad(_matern52_gp, t, y, dtype=f32)(p.detach())
+    make_segmented_nll_grad(matern52_gp, t, y, dtype=f32)(p.detach())
     _sync(_DEV)
     _log(f"[segmented] one gradient at N={SEG_N:,} in segments of the default SEGMENT_SIZE "
          f"{SEGMENT_SIZE:,}: {time.perf_counter() - t0:.4f} s, peak device memory {_peak():.2f} GiB")
@@ -2920,53 +3007,6 @@ def segmented_phase(seed, failures):
     del t, y
     _sample_check(seed, failures)
     return launches
-
-
-def million_dtc_data(n, n_star, seed):
-    """benchmarks/million_dtc.py's make_data (training part): t, X (n, 2),
-    y, numpy float64."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    t_all = np.sort(rng.uniform(0.0, n / 1000.0, size=n + n_star))
-    train_idx = np.sort(rng.permutation(n + n_star)[n_star:])
-    t = t_all[train_idx]
-    X = np.stack([np.sin(0.7 * t) + 0.1 * np.cos(3.1 * t), np.cos(0.23 * t)], axis=1)
-    y = (0.8 * np.sin(2.2 * t) * np.cos(0.31 * t) + 0.6 * np.sin(1.3 * X[:, 0]) + 0.4 * X[:, 1]
-         + 0.25 * rng.normal(size=n))
-    return t, X, y
-
-
-def _dtc_value_grad(t, X, y, Z, p, mixed):
-    """million_dtc.py's P-form DTC bound at log-parameters p and its gradient,
-    through ``WhitenGram`` or, ``mixed`` a chunk width, ``MixedWhitenGram``.
-    The O(N) side float32, the bound's M x M algebra float64."""
-    import torch
-
-    from gpar_at_scale_torch.kernels import Matern52
-    from gpar_at_scale_torch.ops.grad import MixedWhitenGram, WhitenGram
-    from gpar_at_scale_torch.ssm.markov import lgssm_of
-    from gpar_at_scale_torch.utils.params import unpack_gpar
-
-    f32 = torch.float32
-    p = p.detach().clone().requires_grad_(True)
-    tl, ts, ol, os_, ns = unpack_gpar(p)
-    out_k = Matern52(lengthscale=ol, variance=os_**2)
-    lg = lgssm_of(Matern52(lengthscale=tl, variance=ts**2), t, ns**2, f32)
-    U = torch.cat([y[:, None], out_k(X, Z)], dim=1)
-    A, Q, R = lg.A, lg.Q, lg.R
-    G, logdet = (MixedWhitenGram.apply(A, Q, R, U, mixed) if mixed
-                 else WhitenGram.apply(A, Q, R, U))
-    m = Z.shape[0]
-    Kuu = (out_k(Z, Z) + ns**2 * torch.eye(m, dtype=f32, device=Z.device)).double()
-    aa, g, Gb = G[0, 0], G[1:, 0], G[1:, 1:]
-    L_uu, L_P = torch.linalg.cholesky(Kuu), torch.linalg.cholesky(Gb + Kuu)
-    wp = torch.linalg.solve_triangular(L_P, g[:, None], upper=False)[:, 0]
-    ld = lambda L: 2.0 * torch.log(torch.diagonal(L)).sum()  # noqa: E731
-    n = y.shape[0]
-    value = -0.5 * (n * 1.8378770664093453 + logdet + ld(L_P) - ld(L_uu) + aa - (wp * wp).sum())
-    (grad,) = torch.autograd.grad(value, p)
-    return float(value.detach()), grad
 
 
 def mixed_bwd_phase(seed, failures):
@@ -2978,6 +3018,7 @@ def mixed_bwd_phase(seed, failures):
     import numpy as np
     import torch
 
+    from gpar_at_scale_torch.benchmarks.million_dtc import dtc_value_grad, million_dtc_data
     from gpar_at_scale_torch.utils.params import pack_gpar
 
     f32 = torch.float32
@@ -2992,7 +3033,7 @@ def mixed_bwd_phase(seed, failures):
         _reset_peak()
         _sync(_DEV)
         t0 = time.perf_counter()
-        value, g = _dtc_value_grad(t, X, y, Z, p0, mixed)
+        value, g = dtc_value_grad(t, X, y, Z, p0, mixed)
         _sync(_DEV)
         secs[m, mixed] = time.perf_counter() - t0
         peaks[m, mixed] = _peak()
@@ -3016,7 +3057,7 @@ def mixed_bwd_phase(seed, failures):
     _sync(_DEV)
     t0 = time.perf_counter()
     for _ in range(MIXED_STEPS):
-        value, g = _dtc_value_grad(t, X, y, Z, p, MIXED_CHUNK)
+        value, g = dtc_value_grad(t, X, y, Z, p, MIXED_CHUNK)
         p.grad = -g / MIXED_N
         opt.step()
         trace.append(-value / MIXED_N)
@@ -3033,7 +3074,7 @@ def mixed_bwd_phase(seed, failures):
          f"{'ok' if ok_ else 'FAIL'}")
     if not ok_:
         failures.append("[mixed-bwd] the M = 256 training run failed a check")
-    profile_phase("mixed-bwd gradient, M=256", lambda: _dtc_value_grad(t, X, y, Z, p, MIXED_CHUNK))
+    profile_phase("mixed-bwd gradient, M=256", lambda: dtc_value_grad(t, X, y, Z, p, MIXED_CHUNK))
     return launches
 
 
@@ -3081,25 +3122,6 @@ DIST_FIT_RTOL = 1e-3
 _DIST_DIR = "build/dist"
 
 
-def pod_scale_data(n, cols):
-    """benchmarks/pod_scale.py's phase B data: t (n,) float64, Y (n, cols)."""
-    import numpy as np
-
-    rng = np.random.default_rng(1)
-    t = np.cumsum(rng.uniform(0.5, 1.5, size=n)) / n
-    return t, rng.normal(size=(n, cols))
-
-
-def _pod_lgssm(t, p):
-    from gpar_at_scale_torch.kernels import Matern52
-    from gpar_at_scale_torch.ssm.markov import lgssm_of
-
-    import torch
-
-    l, v, nv = torch.exp(p)
-    return lgssm_of(Matern52(lengthscale=l, variance=v), t, nv, torch.float32)
-
-
 def _timed(fn):
     """(fn(), seconds, peak device GiB) with the device synchronized."""
     import torch
@@ -3124,6 +3146,7 @@ def _dist_seq(mesh):
     import numpy as np
     import torch
 
+    from gpar_at_scale_torch.benchmarks.pod_scale import pod_lgssm, pod_scale_data
     from gpar_at_scale_torch.parallel.seqshard import (
         make_sharded_decorrelate,
         make_sharded_logpdf,
@@ -3137,18 +3160,18 @@ def _dist_seq(mesh):
 
     def grad():
         p = p0.clone().requires_grad_(True)
-        ll = make_sharded_logpdf(mesh)(_pod_lgssm(t, p), Y[:, 0])
+        ll = make_sharded_logpdf(mesh)(pod_lgssm(t, p), Y[:, 0])
         return ll.detach(), torch.autograd.grad(ll, p)[0]
 
     def run():
         with torch.no_grad():
-            lg = _pod_lgssm(t, p0)
+            lg = pod_lgssm(t, p0)
             dec = make_sharded_decorrelate(mesh)(lg, Y)
             sm = make_sharded_smooth(mesh)(lg, Y[:, 0])
         return dec, sm, grad()
 
     (dec, sm, (ll, g)), secs, peak, launches = _counted(run)
-    _, dec_s, dec_peak = _timed(lambda: make_sharded_decorrelate(mesh)(_pod_lgssm(t, p0), Y))
+    _, dec_s, dec_peak = _timed(lambda: make_sharded_decorrelate(mesh)(pod_lgssm(t, p0), Y))
     out = dict(ll=dec[0].double().cpu(), alpha=dec[1].cpu(), mean=sm.mean.cpu(), var=sm.var.cpu(),
                lp=float(ll), grad=g.cpu().numpy())
     figs = dict(secs=secs, peak=peak, dec_secs=dec_s, dec_peak=dec_peak, launches=launches,
@@ -3160,6 +3183,7 @@ def _dist_seq(mesh):
 def _dist_model_data():
     import torch
 
+    from gpar_at_scale_torch.benchmarks.million_dtc import million_dtc_data
     from gpar_at_scale_torch.utils.params import pack_gpar
 
     t_np, X_np, y_np = million_dtc_data(DIST_N, MIXED_N_STAR, 0)
@@ -3408,13 +3432,14 @@ def trace_check(failures):
 
     import torch
 
+    from gpar_at_scale_torch.benchmarks.pod_scale import pod_lgssm
     from gpar_at_scale_torch.ops.grad import gain_pass
     from gpar_at_scale_torch.ops.whiten import whiten_sweep
     from gpar_at_scale_torch.utils import profiler_trace
 
     n = 1_000_000
     t = torch.linspace(0.0, n / 1000.0, n, dtype=torch.float64, device=_DEV)
-    lg = _pod_lgssm(t, torch.tensor([math.log(0.5), 0.0, math.log(0.1)], dtype=torch.float64,
+    lg = pod_lgssm(t, torch.tensor([math.log(0.5), 0.0, math.log(0.1)], dtype=torch.float64,
                                     device=_DEV))
     rows = gain_pass(lg.A, lg.Q, lg.R.expand(n).contiguous())[0]
     U = torch.randn((n, M + 1), generator=torch.Generator(device=_DEV).manual_seed(0),
@@ -3443,6 +3468,7 @@ def aux_phase(t_np, Y_np, params, failures):
     import numpy as np
     import torch
 
+    from gpar_at_scale_torch.benchmarks.pod_scale import pod_lgssm
     from gpar_at_scale_torch.data.eeg import generate_synthetic_eeg, load_eeg_csv
     from gpar_at_scale_torch.inference.optimize import adam_init, adam_update
     from gpar_at_scale_torch.models.gpar import _select_pseudo_points
@@ -3490,7 +3516,7 @@ def aux_phase(t_np, Y_np, params, failures):
         failures.append("[aux] the resumed run differs from the uninterrupted one")
 
     n = t.shape[0]
-    lg = _pod_lgssm(t, torch.tensor([math.log(0.5), 0.0, math.log(0.1)], dtype=torch.float64,
+    lg = pod_lgssm(t, torch.tensor([math.log(0.5), 0.0, math.log(0.1)], dtype=torch.float64,
                                     device=_DEV))
     rows = gain_pass(lg.A, lg.Q, lg.R.expand(n).contiguous())[0]
     U = torch.cat([y[:, None], X.expand(n, M)], dim=1).contiguous()

@@ -17,8 +17,14 @@ from gpar_at_scale_torch.ops.whiten import K3, whiten_columns, whiten_gram
 
 KERNELS = (K1, K2, K3, K4A, K4B, K6A, K6B, K6C)
 
+
+def launch_counts():
+    """{kernel name: its launches in this process so far}."""
+    return {k.name: k.launches for k in KERNELS}
+
+
 __all__ = [
-    "K1", "K2", "K3", "K4A", "K4B", "K6A", "K6B", "K6C", "KERNELS",
+    "K1", "K2", "K3", "K4A", "K4B", "K6A", "K6B", "K6C", "KERNELS", "launch_counts",
     "LgssmLoglik", "MixedWhitenGram", "WhitenGram", "chol_solve", "decorrelate_blocked", "logpdf_markov_pallas",
     "pallas_smooth", "pallas_supported", "suffix_scan", "tri_u", "tri_ut", "whiten_columns",
     "whiten_gram",

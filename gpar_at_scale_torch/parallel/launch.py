@@ -9,6 +9,10 @@ its arguments are pickled, so ``fn`` is a module-level function; its result
 should be numpy arrays or numbers.  The children never build kernels:
 build them in the parent first (``ops.build.build_all``), so that two ranks
 do not compile into ``build/`` at once.
+
+``run_world(fn, world_size, *args)`` is the drivers' form: one rank runs in
+this process (NCCL on a card, gloo on the host), more are spawned; the
+stores go under ``build/ranks/`` at the repository root.
 """
 
 from __future__ import annotations
@@ -17,7 +21,10 @@ import multiprocessing as mp
 import os
 import queue
 import traceback
+from pathlib import Path
 from typing import Any, Callable, List, Optional
+
+STORE_DIR = Path(__file__).resolve().parents[2] / "build" / "ranks"
 
 
 def _rank_main(fn, rank, world_size, init_file, backend, threads, args, results):
@@ -76,3 +83,45 @@ def run_ranks(fn: Callable, world_size: int, *args, init_file: str,
     if errors:
         raise RuntimeError("run_ranks failed on " + "\n".join(errors))
     return [out[r] for r in range(world_size)]
+
+
+def rank_device(kind: str):
+    """The device a rank of ``run_world`` computes on: its card for
+    ``kind`` "cuda" (``initialize_distributed`` has set it), else the host."""
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device()) if kind == "cuda" else torch.device("cpu")
+
+
+def run_world(fn: Callable, world_size: int, *args, name: str = "world",
+              timeout: float = 900.0) -> List[Any]:
+    """``[fn(*args) on rank r]`` over ``world_size`` ranks of this host:
+    one rank in this process, in a group of its own that is destroyed
+    after (or in the group that exists), more through ``run_ranks``.  The
+    backend is ``initialize_distributed``'s choice: NCCL when every rank
+    has a card of its own, else gloo (two ranks that share one card).  The
+    kernels are built here first, so that the ranks only load them; each
+    spawned rank takes its share of this host's cores for its threads."""
+    import torch
+    import torch.distributed as dist
+
+    from gpar_at_scale_torch.parallel.distributed import initialize_distributed
+
+    STORE_DIR.mkdir(parents=True, exist_ok=True)
+    store = STORE_DIR / f"{name}-{os.getpid()}"
+    if torch.cuda.is_available():
+        from gpar_at_scale_torch.ops.build import build_all
+
+        build_all()
+    if world_size > 1:
+        return run_ranks(fn, world_size, *args, init_file=str(store), timeout=timeout,
+                         threads=max(1, (os.cpu_count() or 1) // world_size))
+    if dist.is_initialized():
+        return [fn(*args)]
+    if store.exists():
+        store.unlink()
+    initialize_distributed(f"file://{store}", 1, 0)
+    try:
+        return [fn(*args)]
+    finally:
+        dist.destroy_process_group()

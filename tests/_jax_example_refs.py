@@ -286,6 +286,314 @@ _SCRIPTS = {"dtc": _dtc, "toy": _toy, "plot": _plot, "scaled": _scaled, "eeg": _
             "bench": _bench, "chain": _chain, "ess": _ess}
 
 
+# ---------------------------------------------------------------------------
+# The long-series and sampler scripts of benchmarks/: their logic lives in
+# their main(), so each is rebuilt here from the JAX package's functions as
+# the script writes it (the script's lines cited), float64, with the script's
+# module-level functions where it has them.
+# ---------------------------------------------------------------------------
+
+
+def _million_dtc(case):
+    """benchmarks/million_dtc.py at N = case["dtc_N"], M = case["dtc_M"]:
+    its ``make_data``; ``arrays`` and ``bound_from_gram`` (:109-131) and the
+    staged gradient of its ``_check`` (:688-697); the analytic predictive
+    of row (c) (:552-605, one filter and smoother over the M + 1 columns)
+    at the start point (:133)."""
+    import jax
+    import jax.numpy as jnp
+
+    from gpar_at_scale_tpu.kernels import Matern52
+    from gpar_at_scale_tpu.ssm.blocked import blocked_filter, blocked_smooth
+    from gpar_at_scale_tpu.ssm.blocked_grad import whiten_bwd, whiten_fwd_aux
+    from gpar_at_scale_tpu.ssm.markov import lgssm_of
+    from gpar_at_scale_tpu.utils.params import pack_gpar, unpack_gpar
+
+    m = _script("benchmarks.million_dtc")
+    N, M, N_star = case["dtc_N"], case["dtc_M"], case["dtc_Nstar"]
+    t_np, X_np, y_np, ts_np, Xs_np, _, _ = m.make_data(N, N_star, np.random.default_rng(0))
+    f = jnp.float64
+    t, X, y, t_star, X_star = (jnp.asarray(a, f) for a in (t_np, X_np, y_np, ts_np, Xs_np))
+    Z = X[:: max(1, N // M)][:M]
+
+    def build(p):
+        tl, tsig, ol, osig, ns = unpack_gpar(p)
+        return Matern52(lengthscale=tl, variance=tsig**2), Matern52(lengthscale=ol, variance=osig**2), ns**2
+
+    def arrays(p):
+        time_k, out_k, nv = build(p)
+        lg = lgssm_of(time_k, t, nv, f)
+        U = jnp.concatenate([y[:, None], out_k(X, Z)], axis=1)
+        Kuu = out_k(Z, Z) + nv * jnp.eye(Z.shape[0], dtype=f)
+        return lg.A, lg.Q, jnp.broadcast_to(lg.R, (N,)), lg.H, U, Kuu
+
+    def bound_from_gram(G, logdet, Kuu):
+        aa, g, Gb = G[0, 0], G[1:, 0], G[1:, 1:]
+        L_uu, L_P = jnp.linalg.cholesky(Kuu), jnp.linalg.cholesky(Gb + Kuu)
+        wp = jax.scipy.linalg.solve_triangular(L_P, g, lower=True)
+        ld = lambda L: 2.0 * jnp.sum(jnp.log(jnp.diagonal(L)))  # noqa: E731
+        return -0.5 * (N * 1.8378770664093453 + logdet + ld(L_P) - ld(L_uu) + aa - jnp.sum(wp**2))
+
+    @jax.jit
+    def staged(pp):
+        A, Q, R, H, U, Kuu = arrays(pp)
+        G, logdet, aux = whiten_fwd_aux(A, Q, R, H, U)
+        val, (ct_G, ct_ld, ct_K) = jax.value_and_grad(bound_from_gram, argnums=(0, 1, 2))(
+            G, logdet, Kuu)
+        ct_A, ct_Q, ct_R, ct_U = whiten_bwd(A, Q, R, H, aux, ct_G, ct_ld)
+        _, vjp = jax.vjp(lambda q: tuple(x for i, x in enumerate(arrays(q)) if i != 3), pp)
+        (g,) = vjp((ct_A, ct_Q, ct_R, ct_U, ct_K))
+        return G, logdet, val, g
+
+    @jax.jit
+    def predict(p):
+        time_k, out_k, nv = build(p)
+        A, Q, R, H, U, Kuu = arrays(p)
+        G, _, _ = whiten_fwd_aux(A, Q, R, H, U)
+        g, Gb = G[1:, 0], G[1:, 1:]
+        L_uu = jnp.linalg.cholesky(Kuu)
+        sl = jax.scipy.linalg.solve_triangular
+        AAt = sl(L_uu, sl(L_uu, Gb, lower=True).T, lower=True)
+        D = AAt + jnp.eye(AAt.shape[0], dtype=f)
+        L_D = jnp.linalg.cholesky(0.5 * (D + D.T))
+        m_eps = sl(L_D.T, sl(L_D, sl(L_uu, g, lower=True), lower=True), lower=False)
+        t_all = jnp.concatenate([t, t_star])
+        V_all = jnp.concatenate([X, X_star], axis=0)
+        y_all = jnp.concatenate([y, jnp.zeros((N_star,), f)])
+        noise_all = jnp.concatenate([jnp.full((N,), nv, f), jnp.full((N_star,), 1e10, f)])
+        order = jnp.argsort(t_all)
+        lg = lgssm_of(time_k, t_all[order], noise_all[order], f)
+        Phi = sl(L_uu, out_k(V_all[order], Z).T, lower=True).T
+        fx_bar = Phi @ m_eps
+        Gm = sl(L_D, Phi.T, lower=True).T
+        cols = jnp.concatenate([(y_all[order] - fx_bar)[:, None], Gm], axis=1)
+        sm = blocked_smooth(lg, cols, filter_result=blocked_filter(lg, cols))
+        mean_all = fx_bar + sm.mean[:, 0]
+        Hm = Gm - sm.mean[:, 1:]
+        var_all = jnp.sum(Hm * Hm, axis=1) + sm.var
+        inv = jnp.argsort(order)
+        return mean_all[inv][N:], jnp.maximum(var_all, 0.0)[inv][N:]
+
+    p0 = jnp.asarray(pack_gpar(0.5, 1.0, 1.0, 0.7, 0.2), f)
+    G, logdet, val, g = jax.device_get(staged(p0))
+    mean, var = jax.device_get(predict(p0))
+    return dict(G=G, logdet=float(logdet), value=float(val), grad=g, mean=mean, var=var)
+
+
+def _series_of(formula, n, seed=0):
+    """(t, y) numpy float64 of the scripts' long series: gaps of 0.5e-3 to
+    1.5e-3 from numpy seed ``seed``, then ``formula(t, rng)``."""
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.uniform(0.5, 1.5, n)) / 1000.0
+    return t, formula(t, rng)
+
+
+def _million_grad(case):
+    """benchmarks/million_grad.py's default route (:160-170, :205-220):
+    nll = -blocked_logpdf / N of its series (:43-50) and its gradient at
+    pack_gp(0.3, 1.0, 0.1), then ``case["grad_steps"]`` steps of
+    optax.adam(5e-2), float64."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from gpar_at_scale_tpu.kernels import Matern52
+    from gpar_at_scale_tpu.ssm.blocked import blocked_logpdf
+    from gpar_at_scale_tpu.ssm.markov import lgssm_of
+    from gpar_at_scale_tpu.utils.params import pack_gp, unpack_gp
+
+    N = case["grad_N"]
+    t_np, y_np = _series_of(lambda t, rng: np.sin(t * (2.0 / 0.9)) * 0.8 + 0.25 * rng.normal(size=len(t)), N)
+    t, y = jnp.asarray(t_np), jnp.asarray(y_np)
+
+    def nll(p):
+        l, sf, sn = unpack_gp(p)
+        k = Matern52(lengthscale=l, variance=sf**2)
+        return -blocked_logpdf(lgssm_of(k, t, sn**2, jnp.float64), y) / N
+
+    vg = jax.jit(jax.value_and_grad(nll))
+    opt = optax.adam(5e-2)
+    p = jnp.asarray(pack_gp(0.3, 1.0, 0.1), jnp.float64)
+    st = opt.init(p)
+    v0, g0 = vg(p)
+    trace = []
+    for _ in range(case["grad_steps"]):
+        v, g = vg(p)
+        up, st = opt.update(g, st)
+        p = optax.apply_updates(p, up)
+        trace.append(float(v))
+    return dict(nll=float(v0), grad=np.asarray(g0), params=np.asarray(p), trace=np.asarray(trace))
+
+
+def _long_series(case):
+    """benchmarks/long_series.py's rows (:68-71 its series; Matern-5/2
+    (1, 1), noise 0.09) in float64: each row's first output summed, as the
+    script prints it, and the smoothers' means."""
+    import jax
+    import jax.numpy as jnp
+
+    from gpar_at_scale_tpu.kernels import Matern52
+    from gpar_at_scale_tpu.ops.pallas_kalman import pallas_decorrelate
+    from gpar_at_scale_tpu.ops.pallas_smoother import pallas_smooth
+    from gpar_at_scale_tpu.ssm.blocked import blocked_decorrelate, blocked_filter, blocked_smooth
+    from gpar_at_scale_tpu.ssm.kalman import decorrelate
+    from gpar_at_scale_tpu.ssm.markov import lgssm_of
+    from gpar_at_scale_tpu.ssm.pkalman import parallel_decorrelate
+    from gpar_at_scale_tpu.ssm.segmented import segmented_decorrelate_t, segmented_smooth_t
+
+    N, seg = case["long_N"], case["long_segment"]
+    t_np, y_np = _series_of(lambda t, rng: np.sin(t * 3) + 0.3 * rng.normal(size=len(t)), N)
+    t, y = jnp.asarray(t_np), jnp.asarray(y_np)
+    k = Matern52(lengthscale=1.0, variance=1.0)
+    lg = lgssm_of(k, t, 0.09, jnp.float64)
+
+    @jax.jit
+    def rows(y):
+        fr = blocked_filter(lg, y[:, None])
+        return dict(
+            filter=blocked_decorrelate(lg, y)[0],
+            smooth=blocked_smooth(lg, y).mean,
+            split=blocked_smooth(lg, y[:, None], filter_result=fr).mean[:, 0],
+            seq=decorrelate(lg, y)[0],
+            assoc=parallel_decorrelate(lg, y)[0],
+            pallas_filter=pallas_decorrelate(lg, y)[0],
+            pallas_smooth=pallas_smooth(lg, y)[0],
+        )
+
+    out = jax.device_get(rows(y))
+    out["segfilter"] = float(segmented_decorrelate_t(k, t, 0.09, y, seg)[0])
+    out["segsmooth"] = np.asarray(segmented_smooth_t(k, t, 0.09, y, seg).mean)
+    return out
+
+
+def _smc_series(n):
+    """benchmarks/million_smc.py's series (:69-76), t and y rounded to
+    float32 as the script casts them (:72)."""
+    t_np, y_np = _series_of(lambda t, rng: 1.2 * np.sin(2 * np.pi * t / 7.0)
+                            * np.cos(2 * np.pi * t / 1.3) + 0.3 * rng.normal(size=len(t)), n)
+    return t_np.astype(np.float32).astype(np.float64), y_np.astype(np.float32).astype(np.float64)
+
+
+def _million_smc(case):
+    """benchmarks/million_smc.py's host route (:78-92, :170-268) in
+    float64: the likelihood of a fixed particle batch (blocked_logpdf), the
+    JAX ``smc_host`` from the case's x0, and the ``--map-init`` bridge's
+    Nelder-Mead end point and Laplace scale."""
+    import jax
+    import jax.numpy as jnp
+    from scipy.optimize import minimize
+
+    from gpar_at_scale_tpu.inference.smc import smc_host
+    from gpar_at_scale_tpu.kernels import Matern52
+    from gpar_at_scale_tpu.ssm.blocked import blocked_logpdf
+    from gpar_at_scale_tpu.ssm.markov import lgssm_of
+    from gpar_at_scale_tpu.utils.params import unpack_gp
+
+    t_np, y_np = _smc_series(case["smc_N"])
+    t, y = jnp.asarray(t_np), jnp.asarray(y_np)
+
+    @jax.jit
+    def loglik(params):
+        l, sf, sn = unpack_gp(params)
+        return blocked_logpdf(lgssm_of(Matern52(lengthscale=l, variance=sf**2), t, sn**2,
+                                       jnp.float64), y)
+
+    def lik_batch(xs):
+        return np.array([float(loglik(jnp.asarray(x))) for x in np.asarray(xs)])
+
+    def prior_batch(xs):
+        return -0.5 * np.sum(np.asarray(xs) ** 2, axis=1) / 4.0
+
+    res = smc_host(0, prior_batch, lik_batch, case["smc_x0"], num_mutations=case["smc_mutations"],
+                   ess_threshold=0.5, max_stages=case["smc_stages"])
+    negll = lambda p: -float(loglik(jnp.asarray(p)))  # noqa: E731
+    opt = minimize(negll, np.zeros(3), method="Nelder-Mead",
+                   options={"maxfev": 80, "xatol": 1e-3, "fatol": 0.5})
+    pmap, h, f0 = opt.x, 0.02, -opt.fun
+    s = np.empty(3)
+    for i in range(3):
+        e = np.zeros(3)
+        e[i] = h
+        s[i] = 1.0 / np.sqrt(max((2 * f0 + negll(pmap + e) + negll(pmap - e)) / h**2, 1e-2))
+    return dict(lls=lik_batch(case["smc_xs"]), particles=np.asarray(res.particles),
+                logZ=res.log_evidence, stages=res.num_stages, evals=res.num_lik_evals,
+                pmap=pmap, laplace=s)
+
+
+def _nuts_vs_smc(case):
+    """benchmarks/nuts_vs_smc.py's target (:64-76): blocked_loglik of the
+    million_smc series with the prior, its value and gradient at the case's
+    points, float64; and the script's verdict (:121-127) on the case's two
+    clouds."""
+    import jax
+    import jax.numpy as jnp
+
+    from gpar_at_scale_tpu.inference.diagnostics import means_agree_within_mc_error, summarize
+    from gpar_at_scale_tpu.kernels import Matern52
+    from gpar_at_scale_tpu.ssm.blocked_grad import blocked_loglik
+    from gpar_at_scale_tpu.ssm.markov import lgssm_of
+
+    t_np, y_np = _smc_series(case["ns_N"])
+    t, y = jnp.asarray(t_np), jnp.asarray(y_np)
+
+    def logpost(params):
+        l, sf, sn = (jnp.exp(params[i]) + 1e-3 for i in range(3))
+        k = Matern52(lengthscale=l, variance=sf**2)
+        return blocked_loglik(lgssm_of(k, t, sn**2, jnp.float64), y) - 0.5 * jnp.sum(params**2) / 4.0
+
+    v, g = jax.jit(jax.vmap(jax.value_and_grad(logpost)))(jnp.asarray(case["ns_q"]))
+    chains = np.exp(case["ns_nuts"]) + 1e-3
+    cloud = (np.exp(case["ns_smc"]) + 1e-3)[None]
+    d_n, d_s = summarize(chains), summarize(cloud)
+    return dict(value=np.asarray(v), grad=np.asarray(g), mean_nuts=np.asarray(d_n.mean),
+                mean_smc=np.asarray(d_s.mean), mcse_nuts=np.asarray(d_n.mcse),
+                mcse_smc=np.asarray(d_s.mcse),
+                agree=bool(means_agree_within_mc_error(chains, cloud)))
+
+
+def _pod_scaling(case):
+    """benchmarks/pod_scale.py's phase A targets (:56-71: each conditional's
+    DTC logpost) and benchmarks/scaling.py's (:146-150: the toy small set's
+    output 2 given output 1), value and gradient at the case's points,
+    float64; the unsharded blocked decorrelate of scaling --weak's series."""
+    import jax
+    import jax.numpy as jnp
+
+    from gpar_at_scale_tpu.data.toy import generate_small_dataset
+    from gpar_at_scale_tpu.kernels import Matern52
+    from gpar_at_scale_tpu.models.bayes import make_conditional_logpost
+    from gpar_at_scale_tpu.ssm.blocked import blocked_decorrelate
+    from gpar_at_scale_tpu.ssm.markov import lgssm_of
+
+    n, P = case["pod_n"], case["pod_outputs"]
+    rng = np.random.default_rng(0)
+    t = np.sort(rng.uniform(0.0, 4.0, size=n))
+    Y = np.cumsum(rng.normal(size=(n, P)), axis=1) * 0.3 + np.sin(2.0 * t)[:, None]
+    q = jnp.asarray(case["pod_q"])
+    pod = []
+    for i in range(1, P):
+        X_prev = Y[:, :i]
+        lp = make_conditional_logpost(t, X_prev, Y[:, i], likelihood="dtc",
+                                      Z=X_prev[:: max(1, n // 32)][:32], dtype=jnp.float64)
+        v, g = jax.vmap(jax.value_and_grad(lp))(q)
+        pod.append((np.asarray(v), np.asarray(g)))
+    ds = generate_small_dataset(seed=0)
+    V = ds.y_obs[:, :1]
+    lp = make_conditional_logpost(ds.x, V, ds.y_obs[:, 1], likelihood="dtc", Z=V[::3],
+                                  dtype=jnp.float64)
+    v, g = jax.vmap(jax.value_and_grad(lp))(q)
+    N = case["weak_N"]
+    t_np, y_np = _series_of(lambda t, rng: np.sin(t * 3) + 0.3 * rng.normal(size=len(t)), N)
+    lg = lgssm_of(Matern52(lengthscale=1.0, variance=1.0), jnp.asarray(t_np), 0.09, jnp.float64)
+    ll = float(blocked_decorrelate(lg, jnp.asarray(y_np))[0])
+    return dict(pod=pod, toy=(np.asarray(v), np.asarray(g)), weak_ll=ll)
+
+
+_SCRIPTS.update({"million_dtc": _million_dtc, "million_grad": _million_grad,
+                 "long_series": _long_series, "million_smc": _million_smc,
+                 "nuts_vs_smc": _nuts_vs_smc, "pod_scaling": _pod_scaling})
+
+
 def references(case, names):
     """{script: its reference outputs} for the scripts ``names``.  The test
     file runs the scripts in a few processes at once: their compiles, not
@@ -297,3 +605,19 @@ def references(case, names):
                                    " --xla_llvm_disable_expensive_passes=true").strip()
     _setup_jax()
     return {name: _SCRIPTS[name](case) for name in names}
+
+
+def test_refs(jobs):
+    """{(name, args): name(*args)} of ``tests/test_torch_port.py``'s JAX
+    reference functions (its ``_REF_GROUPS``), computed in this process: the
+    test file is imported here again."""
+    for path in (str(REPO), str(REPO / "tests")):
+        if path not in sys.path:
+            sys.path.insert(0, path)
+    _setup_jax()
+    import torch
+
+    torch.set_num_threads(1)
+    import test_torch_port as T
+
+    return {(name, args): getattr(T, name)(*args) for name, args in jobs}

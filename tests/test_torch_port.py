@@ -87,6 +87,83 @@ def _family(name):
     return getattr(jk, name), getattr(tk, name)
 
 
+# JAX references computed away from this worker.  The xdist worker that runs
+# this file computes the port's side; the heaviest JAX sides run in spawned
+# processes started at the file's first case (``_jax_refs_started``), which
+# import this file again (``tests/_jax_example_refs.py::test_refs``) and call
+# the ``_jref_*`` functions below, whose results are numpy.  A case asks for
+# one through ``_jax_ref``, which computes it here when it was not started
+# (a case run alone).  Groups: one process each; users: the cases that read
+# each reference.
+_REF_GROUPS = (
+    (("_jax_eeg_chain", ("scaled",)), ("_jref_seg_refs", ()), ("_jref_mixed_refs", ()),
+     ("_jref_sample_refs", ())),
+    (("_jax_eeg_chain", ("exact",)), ("_jref_carry_case", ()), ("_jref_seg_grad_refs", ()),
+     ("_jref_sum_kernel_refs", ())),
+    (("_jref_slice", ()), ("_jref_adam_trace", ()), ("_jref_kernel_path_training", ()),
+     ("_jref_lbfgs_optimum", ()), ("_jref_dense_dtc_branch", ())),
+)
+_REF_USERS = {
+    "_jax_eeg_chain": ("test_eeg_chain_",), "_jref_seg_refs": ("test_segmented_engine_",),
+    "_jref_mixed_refs": ("test_mixed_backward_",),
+    "_jref_sample_refs": ("test_segmented_posterior_sample_",),
+    "_jref_carry_case": ("test_carry_hooks_",),
+    "_jref_seg_grad_refs": ("test_segmented_gradients_",),
+    "_jref_sum_kernel_refs": ("test_segmented_sum_kernel_",),
+    "_jref_kernel_path_training": ("test_kernel_path_training_",),
+    "_jref_adam_trace": ("test_adam_trace_",), "_jref_slice": ("test_slice_matches_",),
+    "_jref_lbfgs_optimum": ("test_lbfgs_optimum_",),
+    "_jref_dense_dtc_branch": ("test_dense_dtc_branch_",),
+}
+_JAX_REFS = {}
+
+
+def _jax_ref(fn, *args):
+    """fn(*args): the result of the spawned process that computed it, if one
+    was started, else computed here."""
+    pending = _JAX_REFS.get((fn.__name__, args))
+    return pending.get(timeout=900) if pending is not None else fn(*args)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_refs_started(request):
+    """Start the ``_REF_GROUPS`` jobs that a collected case reads, one
+    process per group, at this file's first case."""
+    names = [item.name for item in request.session.items]
+    groups = [tuple(job for job in group
+                    if any(n.startswith(u) for u in _REF_USERS[job[0]] for n in names))
+              for group in _REF_GROUPS]
+    groups = [g for g in groups if g]
+    if not groups:
+        yield
+        return
+    import multiprocessing
+
+    from _jax_example_refs import test_refs
+
+    pool = multiprocessing.get_context("spawn").Pool(len(groups))
+    try:
+        for group in groups:
+            pending = pool.apply_async(test_refs, (group,))
+            for job in group:
+                _JAX_REFS[job] = _Pick(pending, job)
+        yield
+    finally:
+        _JAX_REFS.clear()
+        pool.terminate()
+        pool.join()
+
+
+class _Pick:
+    """One job's result out of its group's pending result."""
+
+    def __init__(self, pending, job):
+        self.pending, self.job = pending, job
+
+    def get(self, timeout):
+        return self.pending.get(timeout=timeout)[self.job]
+
+
 # ---------------------------------------------------------------------------
 # utils/params.py, utils/psd.py
 # ---------------------------------------------------------------------------
@@ -738,7 +815,35 @@ def test_sum_kernel_and_gradients_raise(rng):
 # ---------------------------------------------------------------------------
 
 
-def test_slice_matches_jax_chain(rng, monkeypatch):
+def _slice_case():
+    t, Y, t_star, lat_star, sn = make_chain_data(2500, 200, 3, np.random.default_rng(3))
+    p_first = np.asarray(jparams.pack_gp(0.5, 1.0, 0.2), np.float32)
+    p_cond = np.asarray(jparams.pack_gpar(0.5, 1.0, 1.0, 0.7, 0.2), np.float32)
+    return t, Y, t_star, lat_star, sn, [p_first, p_cond, p_cond]
+
+
+def _jref_slice():
+    """``test_slice_matches_jax_chain``'s JAX side: the chain's predictive
+    (mean, var) and every conditional's pseudo-inputs."""
+    import gpar_at_scale_tpu.models.gpar as jgpar
+    from gpar_at_scale_tpu.inference.optimize import OptResult
+
+    t, Y, t_star, _, _, init = _slice_case()
+    minimize = jgpar._minimize
+    jgpar._minimize = lambda cfg, fun, x0: OptResult(params=x0, value=jnp.nan, num_steps=0,
+                                                      converged=False)
+    try:
+        jcfg = jgpar.GPARConfig(backend="scaled", filter_impl="pallas", num_pseudo_points=8,
+                                dtype=jnp.float32, max_opt_steps=0)
+        jmodel = jgpar.fit_gpar(jax.random.PRNGKey(0), t, Y, jcfg,
+                                init_params=[jnp.asarray(p) for p in init])
+        mu_j, var_j = jmodel.predict(jnp.asarray(t_star, jnp.float32))
+    finally:
+        jgpar._minimize = minimize
+    return np.asarray(mu_j), np.asarray(var_j), [np.asarray(c.Z) for c in jmodel.conditionals]
+
+
+def test_slice_matches_jax_chain():
     """N = 2500 (above DENSE_N_MAX, so the kernel path whitens and the
     blocked smoother predicts), M = 8, float32, filter_impl='pallas'.
 
@@ -755,25 +860,10 @@ def test_slice_matches_jax_chain(rng, monkeypatch):
     a zero, halved or doubled variance fails by two orders of magnitude.
     Against the float64 sequential engine the port's float32 chain is far
     closer (chip_smoke.py's reference phase)."""
-    import gpar_at_scale_tpu.models.gpar as jgpar
-    from gpar_at_scale_tpu.inference.optimize import OptResult
     from gpar_at_scale_torch.models import GPARConfig, fit_gpar
 
-    t, Y, t_star, lat_star, sn = make_chain_data(2500, 200, 3, np.random.default_rng(3))
-    p_first = np.asarray(jparams.pack_gp(0.5, 1.0, 0.2), np.float32)
-    p_cond = np.asarray(jparams.pack_gpar(0.5, 1.0, 1.0, 0.7, 0.2), np.float32)
-    init = [p_first, p_cond, p_cond]
-
-    monkeypatch.setattr(
-        jgpar, "_minimize",
-        lambda cfg, fun, x0: OptResult(params=x0, value=jnp.nan, num_steps=0, converged=False),
-    )
-    jcfg = jgpar.GPARConfig(backend="scaled", filter_impl="pallas", num_pseudo_points=8,
-                            dtype=jnp.float32, max_opt_steps=0)
-    jmodel = jgpar.fit_gpar(jax.random.PRNGKey(0), t, Y, jcfg,
-                            init_params=[jnp.asarray(p) for p in init])
-    mu_j, var_j = jmodel.predict(jnp.asarray(t_star, jnp.float32))
-
+    t, Y, t_star, lat_star, sn, init = _slice_case()
+    mu_j, var_j, Z_j = _jax_ref(_jref_slice)
     for k in KERNELS:
         k.launches = 0
     cfg = GPARConfig(backend="scaled", filter_impl="pallas", num_pseudo_points=8,
@@ -787,8 +877,8 @@ def test_slice_matches_jax_chain(rng, monkeypatch):
     assert bool(torch.isfinite(mu_t).all() and torch.isfinite(var_t).all())
     _close(mu_t, mu_j, rtol=0, atol=1e-4)
     _close(var_t, var_j, rtol=2e-3, atol=0)
-    for cj, ct in zip(jmodel.conditionals, model.conditionals):
-        _close(ct.Z, cj.Z, rtol=0, atol=0)
+    for z_j, ct in zip(Z_j, model.conditionals):
+        _close(ct.Z, z_j, rtol=0, atol=0)
     rmse = np.sqrt(np.mean((_np(mu_t) - lat_star) ** 2, axis=0))
     assert np.all(rmse < sn)
 
@@ -1133,24 +1223,35 @@ def test_kernel_path_gradient_matches_float64_on_chain_data():
         _close(grads[0], grads[1], rtol=1e-3, atol=2e-3)
 
 
+def _jref_adam_trace():
+    """``test_adam_trace_matches_jax``'s JAX side: every output's trained
+    log-parameters and the chain's predictions."""
+    import gpar_at_scale_tpu.models.gpar as jgpar
+
+    t, Y, t_star, init = _small_chain(200, 2)
+    kw = dict(backend="scaled", num_pseudo_points=8, optimizer="adam", max_opt_steps=3)
+    jm = jgpar.fit_gpar(jax.random.PRNGKey(0), t, Y, jgpar.GPARConfig(**kw),
+                        init_params=[jnp.asarray(p) for p in init])
+    return ([np.asarray(f.params) for f in [jm.first] + jm.conditionals],
+            [np.asarray(x) for x in jm.predict(jnp.asarray(t_star))])
+
+
 def test_adam_trace_matches_jax():
     """fit_gpar with 3 Adam steps per output on a 2-output chain at N = 200,
     float64, through the dense/sequential engines, against the JAX fit_gpar
     with the same config: the same gradients and the same Adam formula, so
     the parameters agree to rtol 1e-8 (measured 3e-13) and the
     predictions to 1e-8 (measured 1.2e-12)."""
-    import gpar_at_scale_tpu.models.gpar as jgpar
     from gpar_at_scale_torch.models import GPARConfig, fit_gpar
 
     t, Y, t_star, init = _small_chain(200, 2)
     kw = dict(backend="scaled", num_pseudo_points=8, optimizer="adam", max_opt_steps=3)
-    jm = jgpar.fit_gpar(jax.random.PRNGKey(0), t, Y, jgpar.GPARConfig(**kw),
-                        init_params=[jnp.asarray(p) for p in init])
+    j_params, j_pred = _jax_ref(_jref_adam_trace)
     tm = fit_gpar(None, t, Y, GPARConfig(**kw), init_params=init, device=CPU)
-    for fj, ft in zip([jm.first] + jm.conditionals, [tm.first] + tm.conditionals):
-        _close(ft.params, fj.params, rtol=1e-8, atol=1e-12)
+    for pj, ft in zip(j_params, [tm.first] + tm.conditionals):
+        _close(ft.params, pj, rtol=1e-8, atol=1e-12)
         assert ft.opt.num_steps == 3 and ft.opt.trace.shape == (3,)
-    for a, b in zip(tm.predict(t_star), jm.predict(jnp.asarray(t_star))):
+    for a, b in zip(tm.predict(t_star), j_pred):
         _close(a, b, rtol=1e-8, atol=1e-10)
 
 
@@ -1188,6 +1289,19 @@ def test_parallel_fit_matches_jax(backend):
             _close(a, b, rtol=1e-8, atol=1e-10)
 
 
+def _jref_kernel_path_training():
+    """``test_kernel_path_training_matches_jax``'s JAX side: every output's
+    trained log-parameters."""
+    import gpar_at_scale_tpu.models.gpar as jgpar
+
+    t, Y, _, init = _small_chain(2500, 2)
+    kw = dict(backend="scaled", filter_impl="pallas", num_pseudo_points=8, optimizer="adam",
+              max_opt_steps=3)
+    jm = jgpar.fit_gpar(jax.random.PRNGKey(0), t, Y, jgpar.GPARConfig(dtype=jnp.float32, **kw),
+                        init_params=[jnp.asarray(p, jnp.float32) for p in init])
+    return [np.asarray(f.params) for f in [jm.first] + jm.conditionals]
+
+
 def test_kernel_path_training_matches_jax():
     """The same 3-step Adam in float32 through the kernel path
     ('pallas': K1/K2 + K4 for output 1, K1-K3 + K4 for the conditional) at
@@ -1197,48 +1311,59 @@ def test_kernel_path_training_matches_jax():
     jitted wrapper takes its associative engine, see the module docstring):
     the trained log-parameters differ by at most 6.1e-5 (measured), held to
     atol 5e-4, 1% of the 5e-2 an Adam step moves them."""
-    import gpar_at_scale_tpu.models.gpar as jgpar
     from gpar_at_scale_torch.models import GPARConfig, fit_gpar
 
     t, Y, t_star, init = _small_chain(2500, 2)
     kw = dict(backend="scaled", filter_impl="pallas", num_pseudo_points=8, optimizer="adam",
               max_opt_steps=3)
-    jm = jgpar.fit_gpar(jax.random.PRNGKey(0), t, Y, jgpar.GPARConfig(dtype=jnp.float32, **kw),
-                        init_params=[jnp.asarray(p, jnp.float32) for p in init])
+    j_params = _jax_ref(_jref_kernel_path_training)
     for k in KERNELS:
         k.launches = 0
     tm = fit_gpar(None, t, Y, GPARConfig(dtype=torch.float32, **kw),
                   init_params=[np.asarray(p, np.float32) for p in init], device=CPU)
     assert all(k.launches == 0 for k in KERNELS)
-    for fj, ft, p0 in zip([jm.first] + jm.conditionals, [tm.first] + tm.conditionals, init):
+    for pj, ft, p0 in zip(j_params, [tm.first] + tm.conditionals, init):
         assert float(np.abs(_np(ft.params) - p0).max()) > 1e-2  # it trained
-        _close(ft.params, fj.params, rtol=0, atol=5e-4)
+        _close(ft.params, pj, rtol=0, atol=5e-4)
 
 
-def test_lbfgs_optimum_matches_jax(rng):
-    """L-BFGS to convergence on a small float64 dense conditional (N = 80,
-    M = 6): the port's line search is PyTorch's, not optax's, so the
-    iterates differ, but the optimum is the same one: the bound agrees to
-    rtol 1e-8 (measured 6.4e-14) and the log-parameters to atol 1e-5
-    (measured 3.8e-7)."""
-    import gpar_at_scale_tpu.models.gpar as jgpar
-    from gpar_at_scale_torch.models import GPARConfig, fit_conditional
-    from gpar_at_scale_torch.models.gpar import _conditional_bound
-
+def _lbfgs_case():
+    rng = np.random.default_rng(0)
     n = 80
     t = _grid(rng, n, 6.0)
     X = rng.normal(size=(n, 1))
     y = np.sin(t) + 0.5 * np.tanh(X[:, 0]) + 0.1 * rng.normal(size=n)
     p0 = np.asarray(jparams.pack_gpar(0.5, 1.0, 1.0, 0.7, 0.2))
-    kw = dict(backend="scaled", num_pseudo_points=6, max_opt_steps=200)
+    return t, X, y, p0, dict(backend="scaled", num_pseudo_points=6, max_opt_steps=200)
+
+
+def _jref_lbfgs_optimum():
+    """``test_lbfgs_optimum_matches_jax``'s JAX side: the L-BFGS end point."""
+    import gpar_at_scale_tpu.models.gpar as jgpar
+
+    t, X, y, p0, kw = _lbfgs_case()
     cj = jgpar.fit_conditional(jax.random.PRNGKey(0), t, X, y, jgpar.GPARConfig(**kw),
                                init_params=jnp.asarray(p0))
+    return np.asarray(cj.params)
+
+
+def test_lbfgs_optimum_matches_jax():
+    """L-BFGS to convergence on a small float64 dense conditional (N = 80,
+    M = 6): the port's line search is PyTorch's, not optax's, so the
+    iterates differ, but the optimum is the same one: the bound agrees to
+    rtol 1e-8 (measured 6.4e-14) and the log-parameters to atol 1e-5
+    (measured 3.8e-7)."""
+    from gpar_at_scale_torch.models import GPARConfig, fit_conditional
+    from gpar_at_scale_torch.models.gpar import _conditional_bound
+
+    t, X, y, p0, kw = _lbfgs_case()
+    p_j = _jax_ref(_jref_lbfgs_optimum)
     ct = fit_conditional(None, t, X, y, GPARConfig(**kw), init_params=p0, device=CPU)
     assert ct.opt.converged
     at = _conditional_bound(ct.cfg, ct.t, ct.X_prev, ct.y, ct.Z)
-    v_t, v_j = (float(at(tdtc.dtc_objective, _t(np.asarray(p)))) for p in (ct.params, cj.params))
+    v_t, v_j = (float(at(tdtc.dtc_objective, _t(np.asarray(p)))) for p in (ct.params, p_j))
     _close(v_t, v_j, rtol=1e-8)
-    _close(ct.params, cj.params, rtol=0, atol=1e-5)
+    _close(ct.params, p_j, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("method", ["lbfgs", "adam"])
@@ -1511,7 +1636,43 @@ def test_pallas_dense_dispatch_modes(rng, monkeypatch):
         tcfg.kernel_family("Nope")
 
 
-def test_dense_dtc_branch_matches_jax(rng, monkeypatch):
+def _dense_branch_case():
+    rng = np.random.default_rng(0)
+    n = 28
+    t = np.sort(rng.uniform(0, 4, n)).astype(np.float32)
+    X = rng.normal(size=(n, 2)).astype(np.float32)
+    y = (np.sin(t) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    return t, X, y, (0.1 * rng.normal(size=5)).astype(np.float32)
+
+
+def _jref_dense_dtc_branch():
+    """``test_dense_dtc_branch_matches_jax``'s JAX side: the value and
+    gradient of the dense branch through the interpret kernels."""
+    import os
+
+    t, X, y, p0 = _dense_branch_case()
+
+    def obj_j(p):
+        tl, ts, ol, osig, ns = jparams.unpack_gpar(p)
+        time_k, out_k = jk.Matern52(lengthscale=tl, variance=ts**2), jk.Matern52(lengthscale=ol, variance=osig**2)
+        tj = jnp.asarray(t)
+        return jdtc.dtc_objective(out_k, jmarkov.lgssm_of(time_k, tj, ns**2, jnp.float32),
+                                  jnp.asarray(X), jnp.asarray(X[::2]), jnp.asarray(y),
+                                  uu_ridge=ns**2, filter_fn="dense", time_kernel=time_k, t=tj)
+
+    saved = {v: os.environ.pop(v, None) for v in _DENSE_ENV}
+    os.environ["GPAR_PALLAS_DENSE_INTERPRET"] = "1"
+    try:
+        v_j, g_j = jax.value_and_grad(obj_j)(jnp.asarray(p0))
+        return float(v_j), np.asarray(g_j)
+    finally:
+        for v, val in saved.items():
+            os.environ.pop(v, None)
+            if val is not None:
+                os.environ[v] = val
+
+
+def test_dense_dtc_branch_matches_jax(monkeypatch):
     """The dense branch of dtc_objective (one chol_solve whitening all M + 1
     columns) through the plain kernels against the JAX package's through
     its interpret kernels (``GPAR_PALLAS_DENSE_INTERPRET=1`` drives both),
@@ -1521,19 +1682,8 @@ def test_dense_dtc_branch_matches_jax(rng, monkeypatch):
     the JAX package."""
     from gpar_at_scale_torch.ops import dense as tdense
 
-    n = 28
-    t = np.sort(rng.uniform(0, 4, n)).astype(np.float32)
-    X = rng.normal(size=(n, 2)).astype(np.float32)
-    y = (np.sin(t) + 0.1 * rng.normal(size=n)).astype(np.float32)
-    p0 = (0.1 * rng.normal(size=5)).astype(np.float32)
-
-    def obj_j(p):
-        tl, ts, ol, osig, ns = jparams.unpack_gpar(p)
-        time_k, out_k = jk.Matern52(lengthscale=tl, variance=ts**2), jk.Matern52(lengthscale=ol, variance=osig**2)
-        tj = jnp.asarray(t)
-        return jdtc.dtc_objective(out_k, jmarkov.lgssm_of(time_k, tj, ns**2, jnp.float32),
-                                  jnp.asarray(X), jnp.asarray(X[::2]), jnp.asarray(y),
-                                  uu_ridge=ns**2, filter_fn="dense", time_kernel=time_k, t=tj)
+    t, X, y, p0 = _dense_branch_case()
+    n = t.shape[0]
 
     def obj_t(p):
         tl, ts, ol, osig, ns = tparams.unpack_gpar(p)
@@ -1555,11 +1705,11 @@ def test_dense_dtc_branch_matches_jax(rng, monkeypatch):
     plain = tdense.chol_solve_plain
     monkeypatch.setattr(tdense, "chol_solve_plain", lambda S, B: calls.append(S.shape) or plain(S, B))
     monkeypatch.setenv("GPAR_PALLAS_DENSE_INTERPRET", "1")
-    v_j, g_j = jax.value_and_grad(obj_j)(jnp.asarray(p0))
+    v_j, g_j = _jax_ref(_jref_dense_dtc_branch)
     v_t, g_t = value_grad_t()
     assert calls == [(n, n), (n // 2, n // 2)]  # Sigma_y, then K_uu
-    _close(v_t, float(v_j), rtol=2e-5)
-    _close(g_t, np.asarray(g_j), rtol=2e-3, atol=2e-4)
+    _close(v_t, v_j, rtol=2e-5)
+    _close(g_t, g_j, rtol=2e-3, atol=2e-4)
     _close(v_t, _np(v_off), rtol=2e-5)
     _close(g_t, _np(g_off), rtol=2e-3, atol=2e-4)
 
@@ -1751,7 +1901,7 @@ def test_eeg_chain_matches_jax(backend, monkeypatch):
 
     for v in _DENSE_ENV:
         monkeypatch.delenv(v, raising=False)
-    want = _jax_eeg_chain(backend)
+    want = _jax_ref(_jax_eeg_chain, backend)
     monkeypatch.setenv("GPAR_PALLAS_DENSE_INTERPRET", "1")
     calls = []
     plain = tdense.chol_solve_plain
@@ -1780,7 +1930,7 @@ def test_eeg_chain_from_jax_params(backend, monkeypatch):
     1.6e-6 relative)."""
     for v in _DENSE_ENV:
         monkeypatch.delenv(v, raising=False)
-    want = _jax_eeg_chain(backend)
+    want = _jax_ref(_jax_eeg_chain, backend)
     monkeypatch.setenv("GPAR_PALLAS_DENSE_INTERPRET", "1")
     params = convert.params_from_numpy([np.zeros(3)] + [w[0] for w in want], device=CPU,
                                        dtype=F32)[1:]
@@ -1808,6 +1958,9 @@ def test_port_imports_no_jax():
             "gpar_at_scale_torch/models/bayes.py", "gpar_at_scale_torch/inference/nuts.py",
             "gpar_at_scale_torch/inference/diagnostics.py",
             "gpar_at_scale_torch/examples/eeg.py", "gpar_at_scale_torch/benchmarks/bench.py"} <= names
+    assert {f"gpar_at_scale_torch/benchmarks/{m}.py" for m in (
+        "million_dtc", "million_grad", "long_series", "million_smc", "nuts_vs_smc", "pod_scale",
+        "scaling")} <= names
     offenders = [str(f.relative_to(REPO)) for f in files if pat.search(f.read_text())]
     assert offenders == []
 
@@ -2483,8 +2636,7 @@ def _lg_rows(lt, s, e, dtype=F64):
                          R=lt.R[s:e].to(dtype), e1=lt.e1)
 
 
-@pytest.fixture(scope="module")
-def carry_case():
+def _jref_carry_case():
     """An 80-step series cut at step 50, and the JAX package's fused results
     over it (filter, smoother, a suffix scan of random elements, FFBS state
     draws on fixed normals), from which the carries across the cut come;
@@ -2523,6 +2675,12 @@ def carry_case():
 
     out = jax.device_get(run(*(jnp.asarray(a) for a in (y, E, g, L, xi))))
     return dict(cut=cut, y=y, lt=lt, E=E, g=g, L=L, xi=xi, fused=out[:4], hooks=out[4])
+
+
+@pytest.fixture(scope="module")
+def carry_case():
+    """``_jref_carry_case``, computed away from this worker (``_jax_ref``)."""
+    return _jax_ref(_jref_carry_case)
 
 
 @pytest.mark.parametrize("route", ["tensor", "kernels"])
@@ -2619,8 +2777,7 @@ _SEG_CASES = [
 ]
 
 
-@pytest.fixture(scope="module")
-def seg_refs():
+def _jref_seg_refs():
     """The JAX package's sequential filter and smoother for the cases of
     ``test_segmented_engine_matches_jax``, and its segmented engine on the
     first (120 steps in segments of 40)."""
@@ -2638,6 +2795,12 @@ def seg_refs():
         decorrelate=jseg.segmented_decorrelate(lj, yj, 40, 8),
         smooth=jseg.segmented_smooth(lj, yj, 40, 8)))
     return refs
+
+
+@pytest.fixture(scope="module")
+def seg_refs():
+    """``_jref_seg_refs``, computed away from this worker (``_jax_ref``)."""
+    return _jax_ref(_jref_seg_refs)
 
 
 @pytest.mark.parametrize("name,n,seg", _SEG_CASES)
@@ -2675,8 +2838,7 @@ def test_segmented_engine_matches_jax(name, n, seg, seg_refs):
             _near(getattr(sm, f), getattr(js["smooth"], f), 1e-9)
 
 
-@pytest.fixture(scope="module")
-def seg_grad_refs():
+def _jref_seg_grad_refs():
     """JAX references of the gradient cases at n = 130: the one-shot
     closed-form gradient and the JAX ``make_segmented_nll_grad`` in
     segments of 65."""
@@ -2700,6 +2862,12 @@ def seg_grad_refs():
     ll, cts = jax.device_get(one_shot(yj))
     return dict(ll=ll, cts=cts, nll_grad=jax.device_get(
         jseg.make_segmented_nll_grad(kernel_fn, jnp.asarray(t), yj, 65, 8)(p0)))
+
+
+@pytest.fixture(scope="module")
+def seg_grad_refs():
+    """``_jref_seg_grad_refs``, computed away from this worker (``_jax_ref``)."""
+    return _jax_ref(_jref_seg_grad_refs)
 
 
 @pytest.mark.parametrize("seg", [41, 65, 1, 400])
@@ -2764,8 +2932,7 @@ def test_segmented_t_variants_match_jax():
     assert f.m.shape == (n, 3, 1) and s.mean.shape == (n,)
 
 
-@pytest.fixture(scope="module")
-def sum_kernel_refs():
+def _jref_sum_kernel_refs():
     """The JAX package's sequential filter and smoother and one-shot loglik
     gradient of a sum-kernel SDE (Matern-1/2 + Matern-3/2, d = 3,
     H = [1, 1, 0]) over 77 steps."""
@@ -2782,6 +2949,12 @@ def sum_kernel_refs():
             lj.A, lj.Q, R, lj.H, aux)
 
     return y, lt, jax.device_get(refs(jnp.asarray(y)))
+
+
+@pytest.fixture(scope="module")
+def sum_kernel_refs():
+    """``_jref_sum_kernel_refs``, computed away from this worker (``_jax_ref``)."""
+    return _jax_ref(_jref_sum_kernel_refs)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -2816,8 +2989,7 @@ def test_segmented_sum_kernel_general_H(dtype, sum_kernel_refs, monkeypatch):
         _near(a, b, 1e-9 if dtype == "float64" else 1e-4)
 
 
-@pytest.fixture(scope="module")
-def sample_refs():
+def _jref_sample_refs():
     """The JAX FFBS test's case (Matern-3/2, n = 60, 4 draws on fixed
     normals): the JAX package's blocked draw, and its segmented draw in
     segments of 20."""
@@ -2830,6 +3002,12 @@ def sample_refs():
     blk = jax.jit(lambda y, xi: jblocked.blocked_posterior_sample(None, lj, y, S, 8, xi=xi))(yj, xij)
     seg = jseg.segmented_posterior_sample(None, lj, yj, S, 20, 8, xi=xij)
     return t, y, xi, np.asarray(blk), np.asarray(seg)
+
+
+@pytest.fixture(scope="module")
+def sample_refs():
+    """``_jref_sample_refs``, computed away from this worker (``_jax_ref``)."""
+    return _jax_ref(_jref_sample_refs)
 
 
 @pytest.mark.parametrize("seg", [17, 20, 60, 1])
@@ -2856,8 +3034,7 @@ def test_segmented_posterior_sample_matches_jax(seg, sample_refs):
         tseg.segmented_posterior_sample(None, lt, _t(np.stack([y, y], 1)), 4, seg, xi=_t(xi))
 
 
-@pytest.fixture(scope="module")
-def mixed_refs():
+def _jref_mixed_refs():
     """The JAX mixed-column test's case (n = 60, here M = 9) at the DTC bound's
     cotangent: the JAX package's direct backward, its cotangent factor and
     its mixed sums in chunks of 5 plus the ld part."""
@@ -2899,6 +3076,12 @@ def mixed_refs():
         sums = [a + b for a, b in zip(sums, chunk(jnp.asarray(F[:, j:j + 5])))]
     return dict(t=t, U=np.asarray(U), ct_G=ct_G, ct_ld=float(ct_ld), ref=ref, F=F,
                 sums=jax.device_get(sums))
+
+
+@pytest.fixture(scope="module")
+def mixed_refs():
+    """``_jref_mixed_refs``, computed away from this worker (``_jax_ref``)."""
+    return _jax_ref(_jref_mixed_refs)
 
 
 @pytest.mark.parametrize("chunk", [1, 5, 10])
@@ -3162,9 +3345,9 @@ def _dist_case():
     return case
 
 
-@pytest.fixture(scope="module")
-def dist_results(tmp_path_factory):
-    """(case, the 4 ranks' results, the JAX package's references)."""
+def _dist_compute(store):
+    """(case, the 4 gloo ranks' results, the JAX package's references): the
+    ranks spawned here, the references in a fresh process beside them."""
     import multiprocessing
 
     from _jax_dist_refs import references
@@ -3173,12 +3356,46 @@ def dist_results(tmp_path_factory):
     from gpar_at_scale_torch.parallel.launch import run_ranks
 
     case = _dist_case()
-    store = tmp_path_factory.mktemp("gloo") / "store"
     with multiprocessing.get_context("spawn").Pool(1) as pool:
         pending = pool.apply_async(references, (case,))
         ranks = run_ranks(body, 4, case, init_file=str(store), backend="gloo", threads=1)
         refs = pending.get(timeout=600)
     return case, ranks, refs
+
+
+class _Background:
+    """fn(*args) in a thread started now; ``get`` joins it and returns its
+    result or raises what it raised."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self.out = None
+        self.thread = threading.Thread(target=self._run, args=(fn, args), daemon=True)
+        self.thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self.out = (True, fn(*args))
+        except BaseException as exc:  # raised again in get()
+            self.out = (False, exc)
+
+    def get(self, timeout):
+        self.thread.join(timeout)
+        if self.out is None:
+            raise TimeoutError(f"no result within {timeout} s")
+        ok, value = self.out
+        if not ok:
+            raise value
+        return value
+
+
+@pytest.fixture(scope="module")
+def dist_results(_late):
+    """(case, the 4 ranks' results, the JAX package's references), from the
+    thread ``_Late`` started."""
+    _late.start()
+    return _late.ranks.get(timeout=900)
 
 
 @pytest.mark.parametrize("n", _SEQ_NS)
@@ -3291,17 +3508,24 @@ def test_make_mesh_sizes_must_match_the_world(dist_results):
 # ---------------------------------------------------------------------------
 # The drivers: gpar_at_scale_torch/examples/ and gpar_at_scale_torch/benchmarks/
 # against the repo's scripts in examples/, benchmarks/ and bench.py.  The JAX
-# side runs in 4 fresh processes at once (tests/_jax_example_refs.py; their
-# compiles take the time), started at the file's first case
-# (``_example_refs_started``); the port's side runs in this worker, in the
-# module fixture ``example_results``.  Steps are cut where the scripts
+# side runs in 6 fresh processes at once (tests/_jax_example_refs.py; their
+# compiles take the time), started when the worker is 40% through the file
+# (``_Late``); the port's side runs in this worker, in the module fixture
+# ``example_results``.  Steps are cut where the scripts
 # fix them: 0 optimizer steps (every fit conditions on the script's starts)
 # where the optimizer is L-BFGS, whose iterates are no parity target; 3 Adam
 # steps (optax's Adam is the port's) where the script takes Adam.
 # ---------------------------------------------------------------------------
 
-_SCRIPT_GROUPS = (("chain",), ("eeg", "dtc"), ("scaled", "toy"), ("plot", "bench", "ess"))
+_SCRIPT_GROUPS = (("chain",), ("eeg", "dtc"), ("scaled", "toy"), ("plot", "bench", "ess"),
+                  ("million_dtc", "long_series"),
+                  ("million_grad", "million_smc", "nuts_vs_smc", "pod_scaling"))
 _CHAIN_SIZE = dict(N=600, P=3, M=4, steps=2, n_star=50)
+# this slice's benchmarks at a cut size (the port's modules and the JAX
+# scripts from the same numpy seeds)
+_LONG = dict(dtc_N=2000, dtc_M=8, dtc_Nstar=200, grad_N=1500, grad_steps=3, long_N=2000,
+             long_segment=700, smc_N=1000, smc_P=16, smc_mutations=2, smc_stages=3, ns_N=1000,
+             pod_n=96, pod_outputs=3, weak_per_rank=2048)
 
 
 def _example_case():
@@ -3315,7 +3539,17 @@ def _example_case():
         chain_argv=[str(_CHAIN_SIZE["N"]), f"--outputs={_CHAIN_SIZE['P']}",
                     f"--m={_CHAIN_SIZE['M']}", f"--steps={_CHAIN_SIZE['steps']}",
                     f"--nstar={_CHAIN_SIZE['n_star']}"],
-        ess_u=0.3 * rng.normal(size=(3, 5)), ess_draws=rng.normal(size=(4, 60, 5)))
+        ess_u=0.3 * rng.normal(size=(3, 5)), ess_draws=rng.normal(size=(4, 60, 5)),
+        **_LONG, smc_x0=_long_smc_x0(), smc_xs=0.4 * rng.normal(size=(4, 3)),
+        ns_q=0.3 * rng.normal(size=(3, 3)), ns_nuts=0.2 * rng.normal(size=(2, 30, 3)),
+        ns_smc=0.2 * rng.normal(size=(40, 3)) + 0.05, pod_q=0.3 * rng.normal(size=(3, 5)),
+        weak_N=2 * _LONG["weak_per_rank"])
+
+
+def _long_smc_x0():
+    from gpar_at_scale_torch.benchmarks.million_smc import initial_particles
+
+    return initial_particles(_LONG["smc_P"], 0)
 
 
 def _quiet(fn, *args, **kwargs):
@@ -3326,9 +3560,10 @@ def _quiet(fn, *args, **kwargs):
         return fn(*args, **kwargs)
 
 
-def _port_scripts(case):
-    """The port's side of every script case on the CPU, each entry the
-    script's results or the exception it raised."""
+def _port_scripts(case, only=None):
+    """The port's side of every script case on the CPU (of the names in
+    ``only`` if given), each entry the script's results or the exception it
+    raised."""
     from gpar_at_scale_torch.benchmarks import bench, chain_scale, ess
     from gpar_at_scale_torch.data.eeg import load_eeg
     from gpar_at_scale_torch.data.toy import generate_small_dataset
@@ -3378,7 +3613,96 @@ def _port_scripts(case):
         (g,) = torch.autograd.grad(v.sum(), u)
         return dict(run=run, value=v.detach(), grad=g, diag=ess.diagnostics(case["ess_draws"]))
 
+    def million_dtc():
+        from gpar_at_scale_torch.benchmarks import million_dtc as md
+
+        prob = md.problem(case["dtc_N"], case["dtc_M"], case["dtc_Nstar"], cpu)
+        p0 = md.start(cpu)
+        G, logdet = md.whiten(prob, p0)
+        mean, var, qu = md.predict(prob, p0)
+        return dict(G=G, logdet=float(logdet), staged=md.staged_value_grad(*prob[:4], p0),
+                    fused=md.dtc_value_grad(*prob[:4], p0, 0),
+                    mixed=md.dtc_value_grad(*prob[:4], p0, 3), mean=mean, var=var,
+                    reference=md.predict_reference(prob, p0, qu), check=md.check(prob),
+                    run=_quiet(md.run, case["dtc_N"], case["dtc_M"], 2, case["dtc_Nstar"],
+                               device=cpu))
+
+    def million_grad():
+        from gpar_at_scale_torch.benchmarks import million_grad as mg
+
+        t_np, y_np = mg.million_grad_data(case["grad_N"])
+        t, y = _t(t_np), _t(y_np)
+        out = {}
+        for route, dt in (("blocked", F64), ("fisher", F64), ("pallas", F32), ("seg-fisher", F64)):
+            fn = mg.value_and_grad_fn(route, t, y, dt, segment=600)
+            out[route] = fn(mg.start(cpu, dt))
+        fn = mg.value_and_grad_fn("blocked", t, y, F64)
+        out["adam"] = mg.optimize(fn, mg.start(cpu, F64), case["grad_steps"], case["grad_N"])
+        out["run"] = _quiet(mg.run, case["grad_N"], 2, "pallas", device=cpu)
+        return out
+
+    def long_series():
+        from gpar_at_scale_torch.benchmarks import long_series as ls
+
+        return _quiet(ls.run, case["long_N"], ls.ROWS, device=cpu, reps=1,
+                      segment=case["long_segment"])
+
+    def million_smc():
+        from gpar_at_scale_torch.benchmarks import million_smc as ms
+
+        t_np, y_np, _ = ms.million_smc_data(case["smc_N"])
+        t, y = _t(t_np, F32), _t(y_np, F32)
+        run = _quiet(ms.run, case["smc_N"], case["smc_P"], device=cpu, host=True,
+                     mutations=case["smc_mutations"], max_stages=case["smc_stages"],
+                     dtype=F64, x0=case["smc_x0"], verbose=False)
+        bridge = ms.map_bridge(ms.kernel_loglik(t, y, dtype=F64), case["smc_P"])
+        return dict(lls32=ms.kernel_loglik(t, y, chunk=3)(case["smc_xs"]),
+                    lls64=ms.kernel_loglik(t, y, dtype=F64)(case["smc_xs"]), run=run,
+                    pmap=bridge[0], laplace=bridge[1],
+                    device_run=_quiet(ms.run, case["smc_N"], 8, device=cpu, mutations=1,
+                                      max_stages=2))
+
+    def nuts_vs_smc():
+        from gpar_at_scale_torch.benchmarks import nuts_vs_smc as nv
+        from gpar_at_scale_torch.benchmarks.million_smc import million_smc_data
+
+        t_np, y_np, _ = million_smc_data(case["ns_N"])
+        q = _t(case["ns_q"]).requires_grad_(True)
+        v = nv.blocked_temporal_logpost(_t(t_np, F32), _t(y_np, F32))(q)
+        (g,) = torch.autograd.grad(v.sum(), q)
+        run = _quiet(nv.run, case["ns_N"], 2, 4, 4, 12, device=cpu, smc_stages=2, max_depth=3)
+        return dict(value=v.detach(), grad=g, compare=nv.compare(case["ns_nuts"], case["ns_smc"]),
+                    run=run)
+
+    def pod_scaling():
+        from gpar_at_scale_torch.benchmarks import pod_scale, scaling
+        from gpar_at_scale_torch.ops.kalman import decorrelate_blocked
+
+        def at(lp):
+            q = _t(case["pod_q"]).requires_grad_(True)
+            v = lp(q)
+            return v.detach(), torch.autograd.grad(v.sum(), q)[0]
+
+        pod = [at(lp) for lp in pod_scale.conditional_logposts(case["pod_n"],
+                                                                case["pod_outputs"], cpu, F64)]
+        weak = _quiet(scaling.weak, device=cpu, ranks=2, n_per_device=case["weak_per_rank"])
+        unsharded = []
+        for _, n, _, _, _ in weak:
+            _, y, lg = scaling.weak_series(n, cpu)
+            unsharded.append(float(decorrelate_blocked(lg, y)[0]))
+        return dict(pod=pod, toy=at(scaling.toy_logpost(cpu, F64)), weak=weak, unsharded=unsharded,
+                    pod_run=_quiet(pod_scale.run, device=cpu, outputs=case["pod_outputs"],
+                                   chains=4, samples=3, warmup=3, n_long=2000),
+                    strong=_quiet(scaling.strong, device=cpu, ranks=1, chains_per_device=2,
+                                  samples=3, warmup=3))
+
     jobs = {
+        "million_dtc": million_dtc,
+        "million_grad": million_grad,
+        "long_series": long_series,
+        "million_smc": million_smc,
+        "nuts_vs_smc": nuts_vs_smc,
+        "pod_scaling": pod_scaling,
         "dtc": dtc,
         "toy": lambda: toy_example.run(device=cpu, max_opt_steps=case["toy_steps"]),
         "plot": plot,
@@ -3391,6 +3715,8 @@ def _port_scripts(case):
     }
     out = {}
     for name, job in jobs.items():
+        if only is not None and name not in only:
+            continue
         try:
             out[name] = job()
         except Exception as exc:  # raised again by the script's test
@@ -3398,33 +3724,63 @@ def _port_scripts(case):
     return out
 
 
+class _Late:
+    """Work for the file's late cases, started once the worker is
+    ``LATE_AT`` of the way through the file's cases (``_late_start``) or
+    when a case asks for it: the drivers' JAX references (a pool of
+    ``_SCRIPT_GROUPS`` processes) and the parallel cases' ranks
+    (``_dist_compute``, in a thread).  Started at the first case, they
+    would contend for the host's cores with the early cases' references."""
+
+    LATE_AT = 0.4
+
+    def __init__(self, request):
+        items = request.session.items
+        self.scripts = any("example_results" in getattr(i, "fixturenames", ()) for i in items)
+        self.dist = any("dist_results" in getattr(i, "fixturenames", ()) for i in items)
+        self.tmp = request.getfixturevalue("tmp_path_factory")
+        self.pool = self.examples = self.ranks = None
+
+    def start(self):
+        import multiprocessing
+
+        from _jax_example_refs import references
+
+        if self.scripts and self.pool is None:
+            case = _example_case()
+            self.pool = multiprocessing.get_context("spawn").Pool(len(_SCRIPT_GROUPS))
+            self.examples = case, [self.pool.apply_async(references, (case, names))
+                                   for names in _SCRIPT_GROUPS]
+        if self.dist and self.ranks is None:
+            self.ranks = _Background(_dist_compute, self.tmp.mktemp("gloo") / "store")
+
+    def close(self):
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+
+
 @pytest.fixture(scope="module", autouse=True)
-def _example_refs_started(request):
-    """Start the drivers' JAX references at this file's first case, when the
-    session runs any case that needs them: their compiles then overlap the
-    file's other cases instead of adding to its wall time.  Yields (case,
-    pending results) or None."""
-    if not any("example_results" in getattr(item, "fixturenames", ())
-               for item in request.session.items):
-        yield None
-        return
-    import multiprocessing
-
-    from _jax_example_refs import references
-
-    case = _example_case()
-    pool = multiprocessing.get_context("spawn").Pool(len(_SCRIPT_GROUPS))
+def _late(request):
+    late = _Late(request)
     try:
-        yield case, [pool.apply_async(references, (case, names)) for names in _SCRIPT_GROUPS]
+        yield late
     finally:
-        pool.terminate()
-        pool.join()
+        late.close()
+
+
+@pytest.fixture(autouse=True)
+def _late_start(request, _late):
+    items = [i for i in request.session.items if i.module is request.module]
+    if request.node in items and items.index(request.node) >= _Late.LATE_AT * len(items):
+        _late.start()
 
 
 @pytest.fixture(scope="module")
-def example_results(_example_refs_started):
+def example_results(_late):
     """{script: (the port's results, the JAX script's references)}."""
-    case, pending = _example_refs_started
+    _late.start()
+    case, pending = _late.examples
     port = _port_scripts(case)
     refs = {}
     for p in pending:
@@ -3559,6 +3915,168 @@ def test_ess_script_matches_jax(example_results):
     assert (np.abs(run["pooled"]) < 3.0).all() and run["total"] == 8
 
 
+def test_million_dtc_matches_jax(example_results):
+    """benchmarks/million_dtc.py at N = 2000, M = 8, N* = 200 on the port's
+    kernel route (float32 plain versions) against the script's functions in
+    float64 (``_jax_example_refs.py::_million_dtc``), at its start point:
+    the whitened Gram within 1e-5 of its largest entry and log det within
+    1e-6 relative (measured 1.0e-7, 1.5e-8); the bound within 1e-5
+    relative (9.7e-7); the staged gradient per component within
+    ``chip_smoke.py``'s [grad] bound at N = 2000, 1e-3 |g| + 2e-3 + 8 N
+    eps_f32 (measured at most 2.6e-4 absolute); the analytic predictive's
+    mean and variance within 1e-4 of their largest values (1.2e-6,
+    6.6e-6), and gp/dtc.py's float64 predictive on the same q(u) within
+    1e-6 (5.8e-8; the q(u) comes from the float32 Gram).  The staged
+    gradient equals the one autograd step (``--fused``, the same float32
+    operations: measured equal, held to 1e-9 relative) and the mixed-column
+    backward's within the same per-component bound; ``--check`` meets the
+    script's bounds; the rows (a) to (c) run end to end at 2 Adam steps
+    with nll/N falling."""
+    port, ref = _script_results(example_results, "million_dtc")
+    _near(port["G"], ref["G"], 1e-5)
+    _close(port["logdet"], ref["logdet"], rtol=1e-6)
+    value, grad = port["staged"]
+    _close(value, ref["value"], rtol=1e-5)
+    atol = 2e-3 + 8 * 2.0**-23 * 2000
+    _close(grad, ref["grad"], rtol=1e-3, atol=atol)
+    _close(port["fused"][0], value, rtol=1e-9)
+    _close(port["fused"][1], _np(grad), rtol=1e-9, atol=0)
+    _close(port["mixed"][1], _np(grad), rtol=1e-3, atol=atol)
+    _near(port["mean"], ref["mean"], 1e-4)
+    _near(port["var"], ref["var"], 1e-4)
+    _near(port["reference"][0], ref["mean"], 1e-6)
+    _near(port["reference"][1], ref["var"], 1e-6)
+    dv, _, rg, _, _ = port["check"]
+    assert dv < 1e-5 and rg < 1e-4
+    run = port["run"]
+    assert np.isfinite(run["nll"]).all() and run["nll"][-1] < run["nll"][0]
+    assert run["mean"].shape == (200,) and np.isfinite(run["var"]).all() and run["whiten_ms"] > 0
+
+
+def test_million_grad_matches_jax(example_results):
+    """benchmarks/million_grad.py at N = 1500: the NLML and its gradient at
+    the script's start through the blocked engine by autograd (the script's
+    default), its closed-form gradient (``--fisher``) and the segmented one
+    (``--seg-fisher``, segments of 600), float64, against the script's
+    float64 default within 1e-10 and 1e-8 relative (measured 1.2e-14 and
+    1.3e-9 per component); the kernel route (``--pallas``, float32 plain
+    versions) within 1e-5 and 1e-4 (1.6e-7, 3.2e-6); 3 Adam steps of the
+    port's ``adam_update`` against optax's: log-parameters within 1e-9
+    (1.1e-11) and the nll/N trace within 1e-10 relative (3e-14).  The
+    ``--pallas`` run prints its lines and its nll/N falls."""
+    port, ref = _script_results(example_results, "million_grad")
+    n = 1500
+    for route, (rtol_v, rtol_g) in (("blocked", (1e-10, 1e-8)), ("fisher", (1e-10, 1e-8)),
+                                    ("seg-fisher", (1e-10, 1e-8)), ("pallas", (1e-5, 1e-4))):
+        ll, g = port[route]
+        _close(-ll / n, ref["nll"], rtol=rtol_v)
+        _close(-_np(g) / n, ref["grad"], rtol=rtol_g)
+    params, trace, _ = port["adam"]
+    _close(params, ref["params"], rtol=0, atol=1e-9)
+    _close(trace, ref["trace"], rtol=1e-10)
+    assert port["run"]["nll"][-1] < port["run"]["nll"][0]
+
+
+def test_long_series_matches_jax(example_results):
+    """benchmarks/long_series.py at N = 2000 (segments of 700), every row of
+    the port (float32: the tensor-code engines and the kernels' plain
+    versions) against the script's row in float64: the filters' ll (filter,
+    segfilter, seq, assoc, pallas filter) within 1e-5 relative (measured at
+    most 1.6e-7), the smoothers' means (smooth, smooth-split, segsmooth,
+    pallas smooth) within 1e-4 of their largest value (4.2e-6); the
+    samplers' draws (ffbs, segsample) finite, 4 x 2000."""
+    port, ref = _script_results(example_results, "long_series")
+    for row, key in (("filter", "filter"), ("segfilter", "segfilter"), ("seq", "seq"),
+                     ("assoc", "assoc"), ("pallas filter", "pallas_filter")):
+        _close(float(port[row]["out"][0]), float(ref[key]), rtol=1e-5)
+        assert port[row]["ll"] == pytest.approx(float(port[row]["out"][0]))
+    for row, key in (("smooth", "smooth"), ("smooth-split", "split"), ("segsmooth", "segsmooth"),
+                     ("pallas smooth", "pallas_smooth")):
+        _near(port[row]["out"][0], ref[key], 1e-4)
+    for row in ("ffbs", "segsample"):
+        f = port[row]["out"][0]
+        assert f.shape == (4, 2000) and bool(torch.isfinite(f).all())
+
+
+def test_million_smc_matches_jax(example_results):
+    """benchmarks/million_smc.py at N = 1000 (the script's float32 times and
+    data): one fixed batch of 4 particles' log-likelihoods on the kernel
+    route (float32 plain versions, read back every 3 particles) within 1e-6
+    relative of the script's float64 blocked engine (measured 3.3e-8), in
+    float64 within 1e-12 (3.8e-16); ``--host`` with 16 particles, 2
+    mutations and 3 stages in float64 from the same particles: the same
+    cloud as the JAX ``smc_host`` (both draw from
+    ``np.random.default_rng(0)``; measured equal, held to 1e-12), stages,
+    evaluations and log-evidence; ``--map-init``'s Nelder-Mead end point
+    within 1e-8 (equal) and its Laplace scale within 1e-6 relative
+    (2e-10).  The one-program ``smc`` runs end to end."""
+    port, ref = _script_results(example_results, "million_smc")
+    _close(port["lls32"], ref["lls"], rtol=1e-6)
+    _close(port["lls64"], ref["lls"], rtol=1e-12)
+    run = port["run"]
+    _close(run["particles"], ref["particles"], rtol=0, atol=1e-12)
+    assert (run["result"].num_stages, run["evals"]) == (ref["stages"], ref["evals"])
+    _close(run["result"].log_evidence, ref["logZ"], rtol=1e-10)
+    _close(port["pmap"], ref["pmap"], rtol=0, atol=1e-8)
+    _close(port["laplace"], ref["laplace"], rtol=1e-6)
+    dev = port["device_run"]
+    assert dev["particles"].shape == (8, 3) and np.isfinite(dev["rmse"])
+
+
+def test_nuts_vs_smc_matches_jax(example_results):
+    """benchmarks/nuts_vs_smc.py at N = 1000: its target (blocked_loglik with
+    the prior, float64, the script's float32 times) and its gradient at 3
+    points within 1e-10 and 1e-9 relative of the script's (measured 2e-15,
+    1.1e-13); the verdict on the same two clouds (means, MC errors within
+    1e-12, the same agreement); and a run of 2 chains of 4 + 4 transitions
+    (depth 3) against SMC with 12 particles that ends with finite means."""
+    port, ref = _script_results(example_results, "nuts_vs_smc")
+    _close(port["value"], ref["value"], rtol=1e-10)
+    _close(port["grad"], ref["grad"], rtol=1e-9, atol=1e-9)
+    d_nuts, d_smc, z, agree = port["compare"]
+    for got, key in ((d_nuts.mean, "mean_nuts"), (d_smc.mean, "mean_smc"),
+                     (d_nuts.mcse, "mcse_nuts"), (d_smc.mcse, "mcse_smc")):
+        _close(got, ref[key], rtol=1e-12)
+    assert agree == ref["agree"]
+    run = port["run"]
+    assert run["nuts"].samples.shape == (2, 4, 3) and np.isfinite(run["d_nuts"].mean).all()
+    assert np.isfinite(run["z"]).all() and run["smc"].particles.shape == (12, 3)
+
+
+def test_pod_scale_matches_jax(example_results):
+    """benchmarks/pod_scale.py's phase A targets (n_train = 96, 3 outputs:
+    each conditional's DTC logpost, float64) and their gradients at 3
+    points within 1e-10 relative of the script's (measured 1.8e-16,
+    1.5e-15); both phases run end to end on one rank (4 chains of 3 + 3
+    draws; the whitening of 8 columns at N = 2000) with finite numbers."""
+    port, ref = _script_results(example_results, "pod_scaling")
+    for (v, g), (v_j, g_j) in zip(port["pod"], ref["pod"]):
+        _close(v, v_j, rtol=1e-10)
+        _close(g, g_j, rtol=1e-10, atol=1e-12)
+    (rank,) = port["pod_run"]
+    assert np.isfinite(rank["chain_means"]).all() and np.isfinite(rank["seq_ll"]).all()
+
+
+def test_scaling_matches_jax(example_results):
+    """benchmarks/scaling.py's target (the toy small set's output 2 given
+    output 1, DTC, float64) and its gradient at 3 points within 1e-10 of
+    the script's (measured 1.5e-16, 4e-16); ``--weak`` at 2048 steps per
+    rank on 1 rank and on 2 spawned gloo ranks: every rank's ll equals the
+    unsharded kernel filter's (float32 plain versions) at the same N
+    within 1e-6 relative (measured equal) and the script's float64 blocked
+    engine's at N = 4096 within 1e-5 (1.5e-7); the strong runs' draws
+    finite."""
+    port, ref = _script_results(example_results, "pod_scaling")
+    _close(port["toy"][0], ref["toy"][0], rtol=1e-10)
+    _close(port["toy"][1], ref["toy"][1], rtol=1e-10, atol=1e-12)
+    weak = port["weak"]
+    assert [(D, n) for D, n, *_ in weak] == [(1, 2048), (2, 4096)]
+    for (_, _, _, lls, _), want in zip(weak, port["unsharded"]):
+        _close(np.asarray(lls), want, rtol=1e-6)
+    _close(weak[1][3][0], ref["weak_ll"], rtol=1e-5)
+    assert all(np.isfinite(r[3]).all() for r in port["strong"])
+
+
 def test_batched_predictive_matches_sequential(monkeypatch):
     """gp/dtc.py::predict_scaled_batch against B = 6 calls of predict_scaled
     on one cached q(u) (bench.py's request, N = 156, N* = 100, float64):
@@ -3623,7 +4141,10 @@ def test_mfu_small_rows():
 
 _SCRIPT_MODULES = ("examples.dtc_example", "examples.toy_example", "examples.plot_examples",
                    "examples.scaled_examples", "examples.eeg", "benchmarks.bench",
-                   "benchmarks.mfu", "benchmarks.chain_scale", "benchmarks.ess")
+                   "benchmarks.mfu", "benchmarks.chain_scale", "benchmarks.ess",
+                   "benchmarks.million_dtc", "benchmarks.million_grad", "benchmarks.long_series",
+                   "benchmarks.million_smc", "benchmarks.nuts_vs_smc", "benchmarks.pod_scale",
+                   "benchmarks.scaling")
 
 
 @pytest.mark.parametrize("name", _SCRIPT_MODULES)
