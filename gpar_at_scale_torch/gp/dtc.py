@@ -73,6 +73,7 @@ import torch
 from gpar_at_scale_torch.kernels.base import Kernel, _as_2d
 from gpar_at_scale_torch.ssm.kalman import kalman_filter
 from gpar_at_scale_torch.ssm.markov import LGSSM, lgssm_of
+from gpar_at_scale_torch.utils.observability import host_sync, span
 from gpar_at_scale_torch.utils.psd import (
     _pallas_dense_ok,
     _raise_on_info,
@@ -152,13 +153,14 @@ def _whiten_all(
     mean(lgssm.R), the observation noise (see the JAX package)."""
     V, Z = _as_2d(V), _as_2d(Z)
     n, m = y.shape[0], Z.shape[0]
-    Kfu = out_kernel(V, Z)
-    Kuu = out_kernel(Z, Z)
-    if isinstance(uu_ridge, str) and uu_ridge == "auto":
-        uu_ridge = lgssm.R.mean()
-    if uu_ridge is not None:
-        Kuu = Kuu + uu_ridge * torch.eye(m, dtype=Kuu.dtype, device=Kuu.device)
-    batch = torch.cat([(y - mean)[:, None], Kfu], dim=1)  # (N, M+1)
+    with span("gpar.output_kernel"):
+        Kfu = out_kernel(V, Z)
+        Kuu = out_kernel(Z, Z)
+        if isinstance(uu_ridge, str) and uu_ridge == "auto":
+            uu_ridge = lgssm.R.mean()
+        if uu_ridge is not None:
+            Kuu = Kuu + uu_ridge * torch.eye(m, dtype=Kuu.dtype, device=Kuu.device)
+        batch = torch.cat([(y - mean)[:, None], Kfu], dim=1)  # (N, M+1)
 
     if filter_fn is None and time_kernel is not None:
         filter_fn = "dense" if n <= DENSE_N_MAX else "pallas"
@@ -166,15 +168,19 @@ def _whiten_all(
     if filter_fn == "dense":
         if time_kernel is None or t is None:
             raise ValueError("dense whitening requires time_kernel and t")
-        white, logdet_noise = dense_whiten(time_kernel, t, lgssm.R, batch)
-        L_uu = cholesky_psd(Kuu)
-        aa, g, Gb = _gram_from_white(white)
+        with span("gpar.whiten_gram"):
+            white, logdet_noise = dense_whiten(time_kernel, t, lgssm.R, batch)
+            aa, g, Gb = _gram_from_white(white)
+        with span("gpar.bound"):
+            L_uu = cholesky_psd(Kuu)
     else:
-        G, logdet_noise = _scan_gram(filter_fn, lgssm, batch)
-        # float64 factor with the working precision's relative jitter, as
-        # the JAX package applies to its float32 K_uu.
-        L_uu = cholesky_psd(Kuu.double(), default_jitter(Kuu.dtype))
-        aa, g, Gb = G[0, 0], G[1:, 0], G[1:, 1:]
+        with span("gpar.whiten_gram"):
+            G, logdet_noise = _scan_gram(filter_fn, lgssm, batch)
+            aa, g, Gb = G[0, 0], G[1:, 0], G[1:, 1:]
+        with span("gpar.bound"):
+            # float64 factor with the working precision's relative jitter, as
+            # the JAX package applies to its float32 K_uu.
+            L_uu = cholesky_psd(Kuu.double(), default_jitter(Kuu.dtype))
     return DTCIntermediates(aa=aa, g=g, Gb=Gb, L_uu=L_uu, logdet_noise=logdet_noise)
 
 
@@ -210,7 +216,9 @@ def _lam_chol(inter: DTCIntermediates):
     """chol(A A^T + I) with A A^T = L_uu^-1 Gb L_uu^-T from the Gram form."""
     AAt = solve_lower(inter.L_uu, solve_lower(inter.L_uu, inter.Gb).T)
     Lam = AAt + torch.eye(AAt.shape[0], dtype=AAt.dtype, device=AAt.device)
-    return torch.linalg.cholesky(0.5 * (Lam + Lam.T))
+    L = torch.linalg.cholesky(0.5 * (Lam + Lam.T))
+    host_sync()  # the factorization's info check
+    return L
 
 
 def dtc_objective(
@@ -238,12 +246,14 @@ def dtc_objective(
 
 def dtc_bound(inter: DTCIntermediates, n: int):
     """The P-form DTC bound of n observations from its Gram intermediates."""
-    Kuu_r = inter.L_uu @ inter.L_uu.T
-    L_P = torch.linalg.cholesky(inter.Gb + Kuu_r)
-    wp = solve_lower(L_P, inter.g)
-    logdet_lam = logdet_from_chol(L_P) - logdet_from_chol(inter.L_uu)
-    quad = inter.aa - (wp * wp).sum()
-    return -0.5 * (n * _LOG_2PI + inter.logdet_noise + logdet_lam + quad)
+    with span("gpar.bound"):
+        Kuu_r = inter.L_uu @ inter.L_uu.T
+        L_P = torch.linalg.cholesky(inter.Gb + Kuu_r)
+        host_sync()  # the factorization's info check
+        wp = solve_lower(L_P, inter.g)
+        logdet_lam = logdet_from_chol(L_P) - logdet_from_chol(inter.L_uu)
+        quad = inter.aa - (wp * wp).sum()
+        return -0.5 * (n * _LOG_2PI + inter.logdet_noise + logdet_lam + quad)
 
 
 class QU(NamedTuple):
@@ -304,7 +314,9 @@ def _dense_condition(K, noise_s, cols, prior_var):
     if _pallas_dense_ok(Sigma, both):
         _, Wb, _ = chol_solve(Sigma, both)  # one K6a launch, N_all + M + 1 columns
     else:
-        Wb = solve_lower(torch.linalg.cholesky(Sigma), both)
+        L = torch.linalg.cholesky(Sigma)
+        host_sync()  # the factorization's info check
+        Wb = solve_lower(L, both)
     W = Wb[..., :n_all]  # L^-1 K: W^T W = K Sigma^-1 K
     mean = W.transpose(-1, -2) @ Wb[..., n_all:]
     var = prior_var - (W * W).sum(-2)
@@ -341,6 +353,8 @@ def splice(t, t_star, noise_var, dtype):
     equal to a training time lands after it, as in the JAX package."""
     n, n_star = t.shape[0], t_star.shape[0]
     t_all = torch.cat([t.to(dtype), t_star.to(dtype)])
+    if not (torch.is_tensor(noise_var) and noise_var.device == t.device):
+        host_sync()  # the noise is copied from the host
     noise_all = torch.cat([
         torch.as_tensor(noise_var, dtype=dtype, device=t.device).expand(n),
         torch.full((n_star,), 1e10, dtype=dtype, device=t.device),
@@ -489,7 +503,16 @@ def predict_scaled_batch(
     Phi L_D^-T are one triangular solve each over all B x N_all rows
     (K6b under the dense switch), and the smoother factors the B spliced
     covariances and solves their N_all + M + 1 columns in one K6a launch
-    (under "off", batched ``torch.linalg``)."""
+    (under "off", batched ``torch.linalg``).  The call is the span
+    ``gpar.request``, its stages ``gpar.request.splice``, ``.kernels``,
+    ``.shared_solves``, ``.condition`` and ``.moments``."""
+    with span("gpar.request"):
+        return _predict_scaled_batch(out_kernel, time_kernel, qu, V, t, y, t_star, V_star,
+                                     noise_var, mean, dtype)
+
+
+def _predict_scaled_batch(out_kernel, time_kernel, qu: QU, V, t, y, t_star, V_star, noise_var,
+                          mean, dtype) -> ScaledPrediction:
     V, V_star = _as_2d(V).to(dtype), _as_2d(V_star).to(dtype)
     t, t_star, y = t.to(dtype), t_star.to(dtype), y.to(dtype)
     n, n_star = t.shape[0], t_star.shape[0]
@@ -503,31 +526,36 @@ def predict_scaled_batch(
     out_b, time_b = _batched_kernel(out_kernel, dtype, dev), _batched_kernel(time_kernel, dtype, dev)
     nv = torch.as_tensor(noise_var, dtype=dtype, device=dev)
     b = nv.shape[0]
-    order, inv_order, t_s, _ = splice(t, t_star, 0.0, dtype)
-    noise_s = torch.cat([nv[:, None].expand(b, n),
-                         torch.full((b, n_star), 1e10, dtype=dtype, device=dev)], dim=1)[:, order]
-    V_s = torch.cat([V, V_star])[order]
-    y_s = torch.cat([y - mean, y.new_zeros(n_star)])[order]
+    with span("gpar.request.splice"):
+        order, inv_order, t_s, _ = splice(t, t_star, 0.0, dtype)
+        noise_s = torch.cat([nv[:, None].expand(b, n),
+                             torch.full((b, n_star), 1e10, dtype=dtype, device=dev)], dim=1)[:, order]
+        V_s = torch.cat([V, V_star])[order]
+        y_s = torch.cat([y - mean, y.new_zeros(n_star)])[order]
 
     def solve_shared(L, X):  # L^-1 X^T for X (b, N_all, M): one solve, b N_all columns
         m = X.shape[-1]
         out = solve_lower(L.to(dtype), X.permute(2, 0, 1).reshape(m, -1))
         return out.reshape(m, b, n_all).permute(1, 2, 0)
 
-    K_su = out_b(V_s, qu.Z.to(dtype))  # (b, N_all, M)
-    Phi = solve_shared(qu.L_uu, K_su)  # K_*u L_uu^-T
-    G = solve_shared(qu.L_D, Phi)  # Phi L_D^-T
-    fx_bar = Phi @ qu.m_eps.to(dtype)  # (b, N_all)
-    t2 = t_s[:, None]
-    sm = _dense_condition(time_b(t2, t2), noise_s,
-                          torch.cat([(y_s - fx_bar)[..., None], G], dim=-1),
-                          time_b.variance[:, :, 0].expand(b, n_all))
-    mean_all = fx_bar + sm.mean[..., 0]
-    H = G - sm.mean[..., 1:]
-    var_all = (H * H).sum(-1) + sm.var
-    mean_star = (mean + mean_all)[:, inv_order][:, n:]
-    return ScaledPrediction(mean=mean_star,
-                            var=torch.clamp(var_all[:, inv_order][:, n:], min=0.0))
+    with span("gpar.request.kernels"):
+        K_su = out_b(V_s, qu.Z.to(dtype))  # (b, N_all, M)
+        t2 = t_s[:, None]
+        K_tt = time_b(t2, t2)  # (b, N_all, N_all)
+    with span("gpar.request.shared_solves"):
+        Phi = solve_shared(qu.L_uu, K_su)  # K_*u L_uu^-T
+        G = solve_shared(qu.L_D, Phi)  # Phi L_D^-T
+        fx_bar = Phi @ qu.m_eps.to(dtype)  # (b, N_all)
+    with span("gpar.request.condition"):
+        sm = _dense_condition(K_tt, noise_s, torch.cat([(y_s - fx_bar)[..., None], G], dim=-1),
+                              time_b.variance[:, :, 0].expand(b, n_all))
+    with span("gpar.request.moments"):
+        mean_all = fx_bar + sm.mean[..., 0]
+        H = G - sm.mean[..., 1:]
+        var_all = (H * H).sum(-1) + sm.var
+        mean_star = (mean + mean_all)[:, inv_order][:, n:]
+        return ScaledPrediction(mean=mean_star,
+                                var=torch.clamp(var_all[:, inv_order][:, n:], min=0.0))
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,9 @@ Semantics kept from the JAX package:
   square root, bias-corrected; ``torch.optim.Adam`` computes the same
   update); the value returned is the one at the last evaluated point, the
   parameters those after the last update, and ``converged`` tests the last
-  evaluated gradient norm.
+  evaluated gradient norm.  Each step is the span ``gpar.step`` (with
+  ``gpar.backward`` and ``gpar.update`` inside it,
+  ``utils/observability.py``).
 
 Each result also carries ``trace``, the objective at every evaluated step
 (the accepted iterates for L-BFGS), and the loop's wall ``seconds``.
@@ -40,6 +42,8 @@ import time
 from typing import Callable, NamedTuple
 
 import torch
+
+from gpar_at_scale_torch.utils.observability import host_sync, span
 
 # Most function evaluations of one line search (optax's zoom search, as the
 # JAX package configures it), and the approximate Wolfe test optax's search
@@ -165,14 +169,18 @@ def minimize_adam(
     values = []
     step = 0
     while step < max_steps and gnorm > gtol:
-        opt.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            v = fun(x)
-            v.backward()
-        value = v.detach()
-        values.append(value)
-        gnorm = float(x.grad.norm())
-        opt.step()
+        with span("gpar.step"):
+            opt.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                v = fun(x)
+                with span("gpar.backward"):
+                    v.backward()
+            value = v.detach()
+            values.append(value)
+            with span("gpar.update"):
+                gnorm = float(x.grad.norm())
+                host_sync()
+                opt.step()
         step += 1
     return OptResult(
         params=x.detach(), value=value, num_steps=step, converged=gnorm <= gtol,

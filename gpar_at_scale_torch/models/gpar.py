@@ -43,6 +43,7 @@ from gpar_at_scale_torch.ssm.kalman import kalman_filter
 from gpar_at_scale_torch.ssm.kalman import logpdf as ssm_logpdf
 from gpar_at_scale_torch.ssm.markov import lgssm_of
 from gpar_at_scale_torch.ssm.pkalman import parallel_filter, parallel_logpdf
+from gpar_at_scale_torch.utils.observability import host_sync, span
 from gpar_at_scale_torch.utils.params import init_params, unpack_gp, unpack_gpar, unpack_gpar6
 
 
@@ -302,6 +303,7 @@ def _select_pseudo_points(X, m: int):
     if m >= n:
         return X
     idx = torch.linspace(0, n - 1, m, dtype=torch.float64).to(torch.int64)
+    host_sync()  # the indices are copied from the host
     return X[idx.to(X.device)]
 
 
@@ -312,10 +314,11 @@ def _conditional_bound(cfg: GPARConfig, t_s, X_s, y_s, Z):
     f_impl = _filter_fn_of(cfg)
 
     def at(fn, p):
-        tl, ts, ol, osig, ns, tns = _unpack_cond(cfg, p)
-        time_k = time_kernel_only(cfg.time_family, tl, ts)
-        out_k = cfg.out_family(lengthscale=ol, variance=osig**2)
-        lgssm = lgssm_of(time_k, t_s, tns**2, cfg.dtype)
+        with span("gpar.discretize"):
+            tl, ts, ol, osig, ns, tns = _unpack_cond(cfg, p)
+            time_k = time_kernel_only(cfg.time_family, tl, ts)
+            out_k = cfg.out_family(lengthscale=ol, variance=osig**2)
+            lgssm = lgssm_of(time_k, t_s, tns**2, cfg.dtype)
         # uu_ridge = s2: the output noise keeps chol(K_uu) stable as K_uu
         # approaches rank one; with separate_noise the LGSSM carries the
         # temporal noise tns and the ridge the output noise ns.
@@ -333,8 +336,10 @@ def fit_conditional(
     """Type-II ML for one conditional.  ``scaled``: sort by time, pick the
     pseudo-points (``Z`` (M, i-1) if given, else evenly strided rows),
     maximize the DTC bound through the configured whitening engine (Z
-    fixed, as in the JAX package), then compute q(u) at the optimum.  ``exact``: maximize the dense exact likelihood under the
-    additive GPAR kernel; the posterior's factors are recomputed from the
+    fixed, as in the JAX package), then compute q(u) at the optimum; the
+    spans ``gpar.fit``, ``gpar.fit.sort`` and ``gpar.fit.q_u`` name these
+    stages, ``gpar.discretize`` each step's LGSSM.  ``exact``: maximize
+    the dense exact likelihood under the additive GPAR kernel; the posterior's factors are recomputed from the
     parameters and the data at predict time, as in the JAX package."""
     if cfg.backend not in ("scaled", "exact"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
@@ -355,18 +360,20 @@ def fit_conditional(
         params, res = _train(cfg, nll, x0)
         return FittedConditional(params=params, cfg=cfg, t=t, X_prev=X_prev, y=y,
                                  backend="exact", opt=res)
-    x0 = _params(init_params, 6 if cfg.separate_noise else 5, generator, cfg, device)
-    order = torch.argsort(t, stable=True)
-    t_s, X_s, y_s = t[order], X_prev[order], y[order]
-    if Z is None:
-        Z = _select_pseudo_points(X_s, cfg.num_pseudo_points)
-    else:
-        Z = _as(Z, cfg, device)
-        Z = Z[:, None] if Z.ndim == 1 else Z
-    at = _conditional_bound(cfg, t_s, X_s, y_s, Z)
-    params, res = _train(cfg, lambda p: -at(dtc_objective, p), x0)
-    with torch.no_grad():
-        qu = at(compute_q_u, params)
+    with span("gpar.fit"):
+        x0 = _params(init_params, 6 if cfg.separate_noise else 5, generator, cfg, device)
+        with span("gpar.fit.sort"):
+            order = torch.argsort(t, stable=True)
+            t_s, X_s, y_s = t[order], X_prev[order], y[order]
+            if Z is None:
+                Z = _select_pseudo_points(X_s, cfg.num_pseudo_points)
+            else:
+                Z = _as(Z, cfg, device)
+                Z = Z[:, None] if Z.ndim == 1 else Z
+        at = _conditional_bound(cfg, t_s, X_s, y_s, Z)
+        params, res = _train(cfg, lambda p: -at(dtc_objective, p), x0)
+        with torch.no_grad(), span("gpar.fit.q_u"):
+            qu = at(compute_q_u, params)
     return FittedConditional(
         params=params, cfg=cfg, t=t_s, X_prev=X_s, y=y_s, backend="scaled", Z=Z, qu=qu,
         opt=res,

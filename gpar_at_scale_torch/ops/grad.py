@@ -30,6 +30,9 @@ from the M x M algebra are cast to float32 first.  Both take state dim
 <= 3 with H = e1 (one Matern block), as the kernels do; their callers send
 every other SDE to the associative-scan engine (``logpdf_markov_pallas``
 here, ``gp/dtc.py::_whiten_all`` for the Gram).
+
+The backward of each of the three is the span ``gpar.whiten_gram.backward``
+(``utils/observability.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from gpar_at_scale_torch.ssm.blocked_grad import (
     whiten_bwd_scores,
 )
 from gpar_at_scale_torch.ssm.markov import LGSSM, lgssm_of
+from gpar_at_scale_torch.utils.observability import span
 
 _F32 = torch.float32
 
@@ -70,12 +74,13 @@ class LgssmLoglik(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        A, alpha, S, K, m, P = ctx.saved_tensors
-        aux = ((alpha * torch.sqrt(S))[:, None], S, K, m[:, :, None], P)
-        half = torch.full((1, 1), -0.5, dtype=_F32, device=A.device)
-        dA, dQ, dR, dU = _bwd(A, aux, half, -0.5)  # ll's = the Gram's at -1/2
-        ct = ct.to(_F32)
-        return ct * dA, ct * dQ, ct * dR, ct * dU[:, 0]
+        with span("gpar.whiten_gram.backward"):
+            A, alpha, S, K, m, P = ctx.saved_tensors
+            aux = ((alpha * torch.sqrt(S))[:, None], S, K, m[:, :, None], P)
+            half = torch.full((1, 1), -0.5, dtype=_F32, device=A.device)
+            dA, dQ, dR, dU = _bwd(A, aux, half, -0.5)  # ll's = the Gram's at -1/2
+            ct = ct.to(_F32)
+            return ct * dA, ct * dQ, ct * dR, ct * dU[:, 0]
 
 
 def lgssm_loglik(A, Q, R, y):
@@ -114,8 +119,9 @@ class WhitenGram(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_G, ct_ld):
-        A, *aux = ctx.saved_tensors
-        return _bwd(A, tuple(aux), ct_G, ct_ld)
+        with span("gpar.whiten_gram.backward"):
+            A, *aux = ctx.saved_tensors
+            return _bwd(A, tuple(aux), ct_G, ct_ld)
 
 
 def gain_pass(A, Q, R):
@@ -172,13 +178,14 @@ class MixedWhitenGram(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_G, ct_ld):
-        A, Q, R, U = ctx.saved_tensors
-        F = torch.as_tensor(cotangent_factor(ct_G), dtype=_F32, device=A.device)
-        gains = gain_pass(A, Q, R)
-        ct_A, ct_Q, ct_R = whiten_bwd_ld_part(A, ct_ld, gains)
-        ct_U = torch.zeros_like(U)
-        for j in range(0, F.shape[1], ctx.chunk):
-            parts = whiten_bwd_mixed_chunk(A, U, F[:, j:j + ctx.chunk], gains)
-            for acc, part in zip((ct_A, ct_Q, ct_R, ct_U), parts):
-                acc += part
-        return ct_A, ct_Q, ct_R, ct_U, None
+        with span("gpar.whiten_gram.backward"):
+            A, Q, R, U = ctx.saved_tensors
+            F = torch.as_tensor(cotangent_factor(ct_G), dtype=_F32, device=A.device)
+            gains = gain_pass(A, Q, R)
+            ct_A, ct_Q, ct_R = whiten_bwd_ld_part(A, ct_ld, gains)
+            ct_U = torch.zeros_like(U)
+            for j in range(0, F.shape[1], ctx.chunk):
+                parts = whiten_bwd_mixed_chunk(A, U, F[:, j:j + ctx.chunk], gains)
+                for acc, part in zip((ct_A, ct_Q, ct_R, ct_U), parts):
+                    acc += part
+            return ct_A, ct_Q, ct_R, ct_U, None

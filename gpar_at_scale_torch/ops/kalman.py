@@ -45,6 +45,7 @@ from gpar_at_scale_torch.ops.build import CudaKernel, aligned16, ptr, require_f3
 from gpar_at_scale_torch.ssm import blocked
 from gpar_at_scale_torch.ssm.blocked import _unblock, block_totals, num_blocks_for, replay_blocks
 from gpar_at_scale_torch.ssm.markov import LGSSM
+from gpar_at_scale_torch.utils.observability import host_sync
 
 _LOG_2PI = 1.8378770664093453
 
@@ -61,6 +62,7 @@ K2 = CudaKernel(
 def _e1(d, like):
     H = torch.zeros(d, dtype=like.dtype, device=like.device)
     H[0] = 1.0
+    host_sync()  # a host scalar written into a device tensor: a blocking copy
     return H
 
 

@@ -22,6 +22,7 @@ import torch
 
 from gpar_at_scale_torch.kernels.base import Kernel, ScaledKernel, Sum
 from gpar_at_scale_torch.kernels.stationary import Matern12, Matern32, Matern52
+from gpar_at_scale_torch.utils.observability import host_sync
 
 _SQRT3 = 1.7320508075688772
 _SQRT5 = 2.23606797749979
@@ -113,6 +114,7 @@ def _matern_block(d: int, l, s):
         )
     H = torch.zeros(d, dtype=l.dtype, device=l.device)
     H[0] = 1.0
+    host_sync()  # a host scalar written into a device tensor: a blocking copy
     return SDEBlock(F=F, Pinf=Pinf, H=H, lam=lam)
 
 
@@ -206,7 +208,9 @@ def discretize(sde: SDE, t, noise_var) -> LGSSM:
     t = torch.as_tensor(t, dtype=F0.dtype, device=F0.device)
     n = t.shape[0]
     dts = torch.diff(t)
-    if bool((dts < 0).any()):
+    unsorted = bool((dts < 0).any())
+    host_sync()
+    if unsorted:
         raise ValueError(
             "discretize: time grid must be sorted ascending (got negative time gaps)"
         )

@@ -35,12 +35,11 @@ from gpar_at_scale_torch.utils.observability import (  # noqa: E402
     MetricsLogger,
     profiler_trace,
     stage_timer,
-    throughput,
 )
 from gpar_at_scale_torch.utils.resilience import run_with_checkpointing  # noqa: E402
 
 __all__ += [
     "latest_step", "restore_checkpoint", "save_checkpoint",
-    "MetricsLogger", "profiler_trace", "stage_timer", "throughput",
+    "MetricsLogger", "profiler_trace", "stage_timer",
     "run_with_checkpointing",
 ]

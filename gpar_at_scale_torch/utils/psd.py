@@ -26,6 +26,8 @@ import os
 
 import torch
 
+from gpar_at_scale_torch.utils.observability import host_sync
+
 _MODES = ("off", "on", "interpret")
 _DENSE_N_MIN = 8
 
@@ -84,7 +86,10 @@ def _pallas_dense_ok(*tensors) -> bool:
 
 def _raise_on_info(info):
     """The error ``torch.linalg.cholesky`` raises, from K6a's info word."""
-    bad = int(info.max()) if info.numel() else 0
+    bad = 0
+    if info.numel():
+        bad = int(info.max())
+        host_sync()
     if bad:
         raise torch.linalg.LinAlgError(
             "linalg.cholesky: The factorization could not be completed because the input is "

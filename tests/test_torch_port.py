@@ -3221,11 +3221,11 @@ def test_checkpoint_roundtrip_and_latest_step(tmp_path):
 
 def test_metrics_logger_and_stage_timer(tmp_path):
     """tests/test_aux.py's MetricsLogger and stage_timer cases on the port,
-    with the same JSONL records; throughput; profiler_trace writes a
-    Chrome trace file and does nothing without a directory."""
+    with the same JSONL records; profiler_trace writes a Chrome trace file
+    and does nothing without a directory."""
     import json
 
-    from gpar_at_scale_torch.utils import MetricsLogger, profiler_trace, stage_timer, throughput
+    from gpar_at_scale_torch.utils import MetricsLogger, profiler_trace, stage_timer
 
     path = str(tmp_path / "metrics.jsonl")
     log = MetricsLogger(path=path)
@@ -3241,12 +3241,125 @@ def test_metrics_logger_and_stage_timer(tmp_path):
         h["sync"] = x @ x
     assert log.records[0]["name"] == "matmul" and log.records[0]["seconds"] > 0
     assert h["seconds"] == log.records[0]["seconds"]
-    assert throughput(1000, 2.0, "obs")["obs_per_s"] == 500
     with profiler_trace(str(tmp_path / "trace")):
         torch.ones(64, 64) @ torch.ones(64, 64)
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
     with profiler_trace(None):
         pass
+
+
+@pytest.fixture(scope="module")
+def spans_of_a_fit_and_a_request():
+    """A scaled fit (N = 256, M = 8, 3 Adam steps on the kernel path's
+    plain versions) and one batched request (3 parameter sets, 20 + 10
+    times), each under torch.profiler with the spans on: {"fit": ..,
+    "request": ..} of (the span events, outermost first, each with the
+    id of its enclosing span, and the host_syncs counter's delta)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpar_at_scale_torch.config import kernel_family
+    from gpar_at_scale_torch.models import gpar as tgpar
+    from gpar_at_scale_torch.ssm.markov import lgssm_of
+    from gpar_at_scale_torch.utils import observability as obs
+
+    g = torch.Generator().manual_seed(4)
+    t = torch.sort(torch.rand(256, generator=g) * 25.0).values
+    X = torch.stack([torch.sin(0.7 * t), torch.cos(0.23 * t)], 1)
+    y = torch.sin(2.2 * t) + 0.5 * X[:, 0] + 0.25 * torch.randn(256, generator=g)
+    fam = kernel_family("Matern52")
+    cfg = tgpar.GPARConfig(time_family=fam, out_family=fam, backend="scaled", filter_impl="pallas",
+                           num_pseudo_points=8, dtype=torch.float32, optimizer="adam",
+                           max_opt_steps=3)
+    x0 = torch.log(torch.tensor([0.5, 1.0, 1.0, 0.7, 0.2]) - 1e-3)
+    ts, tq = torch.arange(20.0) / 8, 2.5 + torch.arange(10.0) / 8
+    V, Vq = torch.randn(20, 2, generator=g), torch.randn(10, 2, generator=g)
+    yv = torch.sin(3 * ts) + 0.1 * torch.randn(20, generator=g)
+    tk, ok = fam(lengthscale=0.5, variance=1.0), fam(lengthscale=1.2, variance=0.8)
+    qu = tdtc.compute_q_u(ok, lgssm_of(tk, ts, 0.01), V, V, yv, uu_ridge=0.01, filter_fn="dense",
+                          time_kernel=tk, t=ts)
+    b = torch.tensor([0.9, 1.0, 1.1])
+    work = {
+        "fit": lambda: tgpar.fit_conditional(None, t, X, y, cfg, init_params=x0, device=CPU),
+        "request": lambda: tdtc.predict_scaled_batch(
+            fam(lengthscale=1.2 * b, variance=0.8 * b), fam(lengthscale=0.5 * b, variance=b), qu,
+            V, ts, yv, tq, Vq, 0.01 * b, dtype=F64),
+    }
+    out = {}
+    for name, fn in work.items():
+        before = obs.counts()["host_syncs"]
+        with profile(activities=[ProfilerActivity.CPU]) as prof, obs.spans_on():
+            fn()
+        syncs = obs.counts()["host_syncs"] - before
+        events = sorted((ev for ev in prof.events() if ev.name.startswith("gpar.")),
+                        key=lambda ev: ev.time_range.start)
+        tree = []
+        for ev in events:
+            up = ev.cpu_parent
+            while up is not None and not up.name.startswith("gpar."):
+                up = up.cpu_parent
+            tree.append((ev.name, ev.id, None if up is None else up.id))
+        out[name] = (tree, syncs)
+    return out
+
+
+def test_spans_name_the_stages_of_a_fit_and_a_request(spans_of_a_fit_and_a_request, tmp_path):
+    """Off, span() is one shared no-op context and records nothing; under
+    the profiler with the spans on, a scaled fit holds one gpar.fit with
+    its sort, 3 steps and q(u), each step its six stages (the bound in two
+    pieces: the L_uu factor and the bound itself) and the Gram's backward
+    inside gpar.backward; a batched request holds gpar.request and its
+    five stages.  profiler_trace writes the spans into its trace."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpar_at_scale_torch.utils import observability as obs, profiler_trace
+
+    assert obs.span("gpar.a") is obs.span("gpar.b")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs.span("gpar.a"):
+            torch.ones(2) + 1
+    assert not [ev for ev in prof.events() if ev.name.startswith("gpar.")]
+
+    tree, _ = spans_of_a_fit_and_a_request["fit"]
+    name_of = {i: n for n, i, _ in tree}
+    children = {}
+    for n, i, up in tree:
+        children.setdefault(up, []).append(n)
+    (fit_id,) = [i for n, i, _ in tree if n == "gpar.fit"]
+    assert children[None] == ["gpar.fit"]
+    assert children[fit_id] == ["gpar.fit.sort"] + ["gpar.step"] * 3 + ["gpar.fit.q_u"]
+    steps = [i for n, i, up in tree if n == "gpar.step"]
+    for i in steps:
+        assert children[i] == ["gpar.discretize", "gpar.output_kernel", "gpar.whiten_gram",
+                               "gpar.bound", "gpar.bound", "gpar.backward", "gpar.update"]
+    inner = [name_of[up] for n, _, up in tree if n == "gpar.whiten_gram.backward"]
+    assert inner == ["gpar.backward"] * 3
+
+    tree, _ = spans_of_a_fit_and_a_request["request"]
+    assert [(n, up is None) for n, _, up in tree] == [("gpar.request", True)] + [
+        (f"gpar.request.{s}", False) for s in ("splice", "kernels", "shared_solves", "condition",
+                                                "moments")]
+
+    with profiler_trace(str(tmp_path / "trace")):
+        with obs.span("gpar.probe"):
+            torch.ones(2) + 1
+    assert '"gpar.probe"' in (tmp_path / "trace" / "trace.json").read_text()
+    assert obs.span("gpar.a") is obs.span("gpar.b")  # off again after the block
+
+
+def test_host_syncs_count_the_sites_a_fit_and_a_request_pass(spans_of_a_fit_and_a_request):
+    """The host_syncs counter over the fit and the request of the spans'
+    test: each Adam step passes the gradient norm's read-back, the sort
+    check of the discretization, the time SDE's H row written from the
+    host, the info checks of the K_uu and L_P factorizations, H = e1 in the
+    Gram's forward and its backward (7, as on the card) and the plain K1
+    and K2's own e1 rows (2, on the CPU only); the fit adds the
+    pseudo-points' indices and q(u)'s SDE row, sort check, e1 rows (3),
+    K_uu and chol(Lam) info checks.  The request passes the splice's noise
+    copied from the host and the batched factorization's info check."""
+    assert spans_of_a_fit_and_a_request["fit"][1] == 3 * 9 + 8
+    assert spans_of_a_fit_and_a_request["request"][1] == 2
 
 
 def test_run_with_checkpointing_resumes(tmp_path):
