@@ -8,8 +8,10 @@ Phases, each of which fails the run:
 1. build  -- compile the CUDA kernels from ``gpar_at_scale_torch/csrc/``
    with nvcc for sm_90a (one process per source, in parallel);
 2. kernels -- hold K1, K2, K3 (with and without its filtered means, on the
-   same time blocking as its plain version) and the suffix-scan kernels
-   K4a/K4b (at C = 1 and C = M + 1 columns) against their plain PyTorch
+   same time blocking as its plain version), the suffix-scan kernels
+   K4a/K4b (at C = 1 and C = M + 1 columns) and the adjoint's elements and
+   scores K5a/K5b (B = 1, M + 1, a mixed chunk of 5, M + 1 at 10 N steps,
+   257 at N / 10) against their plain PyTorch
    versions on the card, at the main path's shapes (d = 3, N steps), and
    time both with CUDA events (a kernel slower than its plain version is
    flagged, not failed); the device kernels one K3 sweep runs, with their
@@ -202,7 +204,15 @@ F32_FLOP_PER_S = 67e12
 # to O(1e-5); the tolerance leaves a factor of about 10 over that.
 # K4a/K4b's recursions contract (their E are adjoint transitions), so they
 # hold the same bound.
-TOL = {"K1": 1e-4, "K2": 1e-4, "K3": 1e-4, "K4a": 1e-4, "K4b": 1e-4,
+# K5a forms C_k's first row as a d-term dot product of A_{k+1} and
+# I - K_k e1^T, where the plain version sums the same products through a
+# batched matmul, and b, W by the same IEEE divisions: O(1e-7) of C's
+# scale, held to 1e-5.  K5b sums B^2 products with ctsym per step, then B
+# more for R2, Rm and u ctsym u^T, in another order than cuBLAS's, and
+# ct_A and ct_R are differences of such sums (R2 A P + Rm against N A P
+# ct_ld, u ctsym u^T against ct_ld D) that cancel to well under their
+# terms' size: it holds the scan kernels' bound.
+TOL = {"K1": 1e-4, "K2": 1e-4, "K3": 1e-4, "K4a": 1e-4, "K4b": 1e-4, "K5a": 1e-5, "K5b": 1e-4,
        "K6a": 1e-4, "K6b": 1e-4, "K6c": 1e-4}
 # Reference phase: float32 kernels and smoother against float64 sequential
 # filtering at N = 2500, seed 0.  Means are O(1) and differed by at most
@@ -291,6 +301,17 @@ def _k4a_flops(d, C):
 
 def _k4b_flops(d, C):
     return 2 * d * d * C + 4 * d**3  # v += E v per column; E M E^T
+
+
+def _k5a_flops(d, B):
+    return 2 * d * d + 1 + B  # C_k's first row, 1 / S_k, e_k / S_k
+
+
+def _k5b_flops(d, B):
+    # [r_k; u] ctsym, then R2, Rm and u ctsym u^T; u; A P, R2 A P, N A P;
+    # A K, D and the scores' elementwise terms
+    return (2 * (d + 1) * B * B + (4 * d * d + 2) * B + 2 * d * B + 6 * d**3
+            + 2 * d * d + 2 * d * d + 6 * d * d + 4)
 
 
 def _grad_gap(got, want, n):
@@ -483,7 +504,90 @@ def check_kernels(t, Y, params, M, failures):
             _nbytes(E, g, W, g0, L0, *r3_k), n * _k4b_flops(d, C), label=f"C={C}",
         )
         del r1_k, r1_p, r3_k, r3_p
+    del E, b, W
+    check_adjoint_kernels(A, Q, R, batch, records, failures)
     return records
+
+
+def _adjoint_case(A, aux, ct_G, ct_ld, scan_W, record, key, label, H):
+    """K5a and K5b on one set of inputs against their plain versions (the
+    tensor code with H = e1): the elements, the suffix scan of the plain
+    elements (with W, or with W = 0 as the mixed-column backward scans),
+    the scores."""
+    import torch
+
+    from gpar_at_scale_torch.ops import grad as og
+    from gpar_at_scale_torch.ops import smoother as osm
+    from gpar_at_scale_torch.ssm.blocked_grad import whiten_bwd_elements, whiten_bwd_scores
+
+    n, d, B = A.shape[0], A.shape[-1], aux[0].shape[1]
+    e, S, K, m, P = aux
+    el_k = og.adjoint_elements(A, aux)
+    el_p = whiten_bwd_elements(A, H, aux)
+    _sync(A.device)
+    record(
+        og.K5A, "K5a" + key, el_k, el_p, "C b W",
+        _time_ms(lambda: og.adjoint_elements(A, aux), reps=20),
+        _time_ms(lambda: whiten_bwd_elements(A, H, aux), reps=3),
+        _nbytes(A, K, S, e, *el_k), n * _k5a_flops(d, B), label=label,
+    )
+    C, b, W = el_p
+    del el_k, el_p
+    r, Nmat = osm.suffix_scan(C, b, W if scan_W else torch.zeros_like(W))
+    del C, b, W
+    sc_k = og.adjoint_scores(A, aux, r, Nmat, ct_G, ct_ld)
+    sc_p = whiten_bwd_scores(A, H, aux, r, Nmat, ct_G, ct_ld)
+    _sync(A.device)
+    record(
+        og.K5B, "K5b" + key, sc_k, sc_p, "ct_A ct_Q ct_R ct_U",
+        _time_ms(lambda: og.adjoint_scores(A, aux, r, Nmat, ct_G, ct_ld), reps=20),
+        _time_ms(lambda: whiten_bwd_scores(A, H, aux, r, Nmat, ct_G, ct_ld), reps=3),
+        _nbytes(A, P, K, S, e, m, r, Nmat, *sc_k), n * _k5b_flops(d, B), label=label,
+    )
+
+
+def check_adjoint_kernels(A, Q, R, batch, records, failures):
+    """K5a and K5b against their plain versions on the whitened-Gram
+    backward's inputs of the first conditional (N steps, d = 3): its B =
+    M + 1 columns with a random symmetric Gram cotangent and ct_ld (the
+    record); the first column alone with ct_G = ct_ld = -1/2 (the
+    likelihood's backward, B = 1); 5 columns with ct_G = -I, ct_ld = 0 and
+    W = 0 in the scan (a mixed-column chunk); the same inputs repeated to
+    10 N steps (the 10^7 cell's size, B = M + 1); and 257 columns (M =
+    256) at N / 10 steps."""
+    import torch
+
+    from gpar_at_scale_torch.ops import kalman as ok
+    from gpar_at_scale_torch.ops import whiten as ow
+
+    record = functools.partial(_record, records, failures)
+    n, d, B = A.shape[0], A.shape[-1], batch.shape[1]
+    H = ok._e1(d, A)
+    gen = torch.Generator(device=A.device).manual_seed(5)
+    _, _, aux = ow.gram_forward(A, Q, R, batch, want_aux=True)
+
+    def sym_ct(b):
+        X = torch.randn((b, b), generator=gen, dtype=torch.float64, device=A.device)
+        return X + X.T
+
+    def cols(aux_, c):
+        e, S, K, m, P = aux_
+        return (e[:, :c].contiguous(), S, K, m[:, :, :c].contiguous(), P)
+
+    half = torch.full((1, 1), -0.5, dtype=torch.float64, device=A.device)
+    ct_ld = torch.tensor(0.7, dtype=torch.float64, device=A.device)
+    _adjoint_case(A, aux, sym_ct(B), ct_ld, True, record, "", f"N={n} B={B}", H)
+    _adjoint_case(A, cols(aux, 1), half, -0.5, True, record, "@1", f"N={n} B=1", H)
+    eye = -torch.eye(5, dtype=torch.float32, device=A.device)
+    _adjoint_case(A, cols(aux, 5), eye, 0.0, False, record, "@mixed", f"N={n} B=5, W=0, ct_ld=0", H)
+    big = tuple(x.repeat((10,) + (1,) * (x.ndim - 1)) for x in (A,) + aux)
+    _adjoint_case(big[0], big[1:], sym_ct(B), ct_ld, True, record, "@10N", f"N={10 * n} B={B}", H)
+    del big, aux
+    n10 = n // 10
+    U = torch.randn((n10, 257), generator=gen, dtype=torch.float32, device=A.device)
+    A10, Q10, R10 = (x[:n10].contiguous() for x in (A, Q, R))
+    _, _, aux = ow.gram_forward(A10, Q10, R10, U, want_aux=True)
+    _adjoint_case(A10, aux, sym_ct(257), ct_ld, True, record, "@257", f"N={n10} B=257", H)
 
 
 def check_kernel_edges(failures):
@@ -557,6 +661,29 @@ def check_kernel_edges(failures):
         worst[f"K4b d={d} n={n} {nb}x{T} C={C}"] = _rel_err(
             osm.suffix_replay(E, g, L, g0, L0, nb, T), osm.r3_plain(E, g, L, g0, L0, nb, T),
             ["v", "M"])[1]
+    # K5a/K5b: random inputs at d = 1, 2, 3; one step, ragged last tiles of
+    # K5b's (up to 32 steps, fewer at wide B) and K5a's 128, inputs off a
+    # 16-byte boundary, B = 1 to 257 (ctsym staged and read through L2)
+    from gpar_at_scale_torch.ops import grad as og
+    from gpar_at_scale_torch.ssm.blocked_grad import whiten_bwd_elements, whiten_bwd_scores
+
+    for d, n, B, off in ((1, 1, 1, False), (2, 33, 2, True), (3, 100, 7, False),
+                         (3, 1000, 33, True), (2, 129, 70, False), (3, 65, 130, False),
+                         (1, 300, 257, True)):
+        arrays = [torch.as_tensor(rng.normal(size=shape)).to(_DEV, f32).contiguous() for shape in (
+            (n, d, d), (n, d, d), (n, d), (n, B), (n, d, B), (n, d, B), (n, d, d))]
+        arrays.append(torch.as_tensor(rng.uniform(0.5, 2.0, n)).to(_DEV, f32))
+        if off:
+            arrays = [off16(x) for x in arrays]
+        A, P, K, e, m, r, Nm, S = arrays
+        aux, H = (e, S, K, m, P), ok._e1(d, A)
+        X = rng.normal(size=(B, B))
+        ct_G = torch.as_tensor(X + X.T, device=_DEV)
+        worst[f"K5a d={d} n={n} B={B}"] = _rel_err(
+            og.adjoint_elements(A, aux), whiten_bwd_elements(A, H, aux), "C b W".split())[1]
+        worst[f"K5b d={d} n={n} B={B}"] = _rel_err(
+            og.adjoint_scores(A, aux, r, Nm, ct_G, 0.3),
+            whiten_bwd_scores(A, H, aux, r, Nm, ct_G, 0.3), "ct_A ct_Q ct_R ct_U".split())[1]
     for d, n, B, nb, T in ((1, 9, 1, 4, 3), (2, 333, 70, 20, 17), (3, 333, 33, 7, 48),
                            (3, 1000, 5, 62, 17)):
         S = rng.uniform(0.5, 2.0, n)
@@ -785,11 +912,11 @@ def grad_check(seed, failures, device="cuda"):
 
 
 def _scan_kernels():
-    """K1-K4b, the kernels of the N = 1e6 chain (K6a-c take the dense
-    path, [eeg])."""
-    from gpar_at_scale_torch.ops import K1, K2, K3, K4A, K4B
+    """K1-K5b, the kernels of the N = 1e6 chain (K6a-c take the dense
+    path, [eeg]; K4a-K5b run in training only)."""
+    from gpar_at_scale_torch.ops import K1, K2, K3, K4A, K4B, K5A, K5B
 
-    return (K1, K2, K3, K4A, K4B)
+    return (K1, K2, K3, K4A, K4B, K5A, K5B)
 
 
 def train_chain(t, Y, t_star, lat_star, sn, params, failures):
@@ -903,13 +1030,21 @@ def traced_train_step(model, failures):
     from gpar_at_scale_torch.inference.optimize import minimize_adam
     from gpar_at_scale_torch.models.gpar import _conditional_bound
 
+    from gpar_at_scale_torch.ops import launch_counts
+
     c = model.conditionals[-1]
     at = _conditional_bound(c.cfg, c.t, c.X_prev, c.y, c.Z)
     res = []
+    before = launch_counts()
     profile_phase("train step", lambda: res.append(
         minimize_adam(lambda p: -at(dtc_objective, p), c.params, max_steps=1)))
+    step = {k.split()[0]: v - before[k] for k, v in launch_counts().items() if v > before[k]}
+    _log(f"[profile] train step: launches {step}")
     if not bool(torch.isfinite(res[0].params).all()):
         failures.append("the traced training step gave non-finite parameters")
+    if step.get("K5a") != 1 or step.get("K5b") != 1:
+        failures.append(f"one Adam step launched K5a/K5b {step.get('K5a')}/{step.get('K5b')} "
+                        "times, not once each")
 
 
 # ---------------------------------------------------------------------------
@@ -2500,7 +2635,7 @@ def ffbs_phase(seed, failures):
     finite = bool(torch.isfinite(draws).all() and torch.isfinite(x).all())
     ok_ = (finite and abs(z_mean) <= FFBS_MEAN_ATOL and abs(z_ms - 1.0) <= FFBS_MS_ATOL
            and scan_rel <= FFBS_SCAN_RTOL and same == 0.0 and draws.shape == (FFBS_S, SMC_N)
-           and all(launches[k.name] > 0 for k in _scan_kernels() if not k.name.startswith("K3")))
+           and all(launches[k.name] > 0 for k in _scan_kernels() if not k.name.startswith(("K3", "K5"))))
     _log(f"[ffbs] {FFBS_S} joint draws x {SMC_N:,} steps: blocked_posterior_sample {total_s:.4f} s; "
          f"staged: filter {1e3 * filter_s:.2f} ms + sampling {1e3 * sample_s:.2f} ms "
          f"({FFBS_S * SMC_N / sample_s:.4e} sample-steps/s in the sampling pass); standardized "
@@ -2984,7 +3119,8 @@ def segmented_phase(seed, failures):
     peak = _peak()
     trace = np.asarray(trace)
     fell = bool(np.isfinite(trace).all() and trace[-1] < trace[0])
-    launched = all(launches[k.name] > 0 for k in _scan_kernels() if not k.name.startswith("K3"))
+    # the segments' backward is the tensor code's (ssm/segmented.py): no K3, K5a/K5b
+    launched = all(launches[k.name] > 0 for k in _scan_kernels() if not k.name.startswith(("K3", "K5")))
     _log(f"[segmented] training N={SEG_N:,} in {SEG_N // SEG_SIZE} segments of {SEG_SIZE:,}: "
          f"{SEG_STEPS} Adam steps in {train_s:.3f} s ({train_s / SEG_STEPS:.4f} s/step, "
          f"{SEG_N * SEG_STEPS / train_s:.4e} filter steps/s forward and backward); nll/N "
@@ -3392,7 +3528,8 @@ def dist_phase(t_np, Y_np, params, par_ends, failures):
             for k, v in res[name]["launches"].items():
                 acc[k] = acc.get(k, 0) + v
     scan = [k.name for k in _scan_kernels()]
-    need = {"seq": scan[:2] + scan[3:], "model": scan, "chain12": scan[:2] + scan[3:],
+    # the time-sharded paths' backward is the tensor code's (parallel/seqshard.py)
+    need = {"seq": scan[:2] + scan[3:5], "model": scan, "chain12": scan[:2] + scan[3:5],
             "fit": [k.name for k in _dense()]}
     for name, kernels in need.items():
         if not all(paths[name][k] > 0 for k in kernels):
@@ -3648,7 +3785,7 @@ def main(argv=None):
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not (finite and shape_ok):
         failures.append("main-path predictions are not finite or have the wrong shape")
-    for k in scan[:3]:  # K4a/K4b are not on the serving path
+    for k in scan[:3]:  # K4a-K5b are not on the serving path
         if launches[k.name] == 0:
             failures.append(f"{k.name} was not launched on the serving path")
     # where the time goes: one more conditioning and one more request, traced
@@ -3689,7 +3826,7 @@ def main(argv=None):
     script_launches, mfu_rows = scripts_phase(failures)
     # 11. the reference-named api on the big toy dataset
     api_launches = api_phase(args.seed, failures)
-    for key, k in zip(("K1", "K2", "K3", "K4a", "K4b"), scan):
+    for key, k in zip(("K1", "K2", "K3", "K4a", "K4b", "K5a", "K5b"), scan):
         records[key]["launches"] = train_launches[k.name]
         records[key]["launches_by_path"] = {path: counts[k.name] for path, counts in (
             ("train", train_launches), ("parallel", par_launches), ("api", api_launches))}
@@ -3710,8 +3847,9 @@ def main(argv=None):
                   ("scripts", script_launches))
     from gpar_at_scale_torch.ops import KERNELS
 
-    for key, k in zip(("K1", "K2", "K3", "K4a", "K4b", "K6a", "K6b", "K6c"), KERNELS):
-        records[key]["launches_by_path"].update({path: c[k.name] for path, c in new_paths})
+    for k in KERNELS:
+        records[k.name.split()[0]]["launches_by_path"].update(
+            {path: c[k.name] for path, c in new_paths})
     _log("[kernels] launches on the paths: training " + str(train_launches) + "; parallel fit "
          + str(par_launches) + "; api " + str(api_launches) + "; EEG 'on' K6a/K6b/K6c "
          + f"{eeg_launches}, in parallel {eeg_par_launches}; "
@@ -3720,7 +3858,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     assoc_phase(t, Y, params, failures)
 
-    keys = ("K1", "K2", "K3", "K4a", "K4b", "K6a", "K6b", "K6c")
+    keys = ("K1", "K2", "K3", "K4a", "K4b", "K5a", "K5b", "K6a", "K6b", "K6c")
     print(json.dumps({"kernels": [records[k] for k in keys]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -6,6 +6,8 @@ launch (``ops/build.py``).
 
 from gpar_at_scale_torch.ops.dense import K6A, K6B, K6C, chol_solve, tri_u, tri_ut
 from gpar_at_scale_torch.ops.grad import (
+    K5A,
+    K5B,
     LgssmLoglik,
     MixedWhitenGram,
     WhitenGram,
@@ -15,7 +17,7 @@ from gpar_at_scale_torch.ops.kalman import K1, K2, decorrelate_blocked, pallas_s
 from gpar_at_scale_torch.ops.smoother import K4A, K4B, pallas_smooth, suffix_scan
 from gpar_at_scale_torch.ops.whiten import K3, whiten_columns, whiten_gram
 
-KERNELS = (K1, K2, K3, K4A, K4B, K6A, K6B, K6C)
+KERNELS = (K1, K2, K3, K4A, K4B, K5A, K5B, K6A, K6B, K6C)
 
 
 def launch_counts():
@@ -24,7 +26,7 @@ def launch_counts():
 
 
 __all__ = [
-    "K1", "K2", "K3", "K4A", "K4B", "K6A", "K6B", "K6C", "KERNELS", "launch_counts",
+    "K1", "K2", "K3", "K4A", "K4B", "K5A", "K5B", "K6A", "K6B", "K6C", "KERNELS", "launch_counts",
     "LgssmLoglik", "MixedWhitenGram", "WhitenGram", "chol_solve", "decorrelate_blocked", "logpdf_markov_pallas",
     "pallas_smooth", "pallas_supported", "suffix_scan", "tri_u", "tri_ut", "whiten_columns",
     "whiten_gram",

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("kalman_scan", "whiten", "suffix_scan", "dense")
+SOURCES = ("kalman_scan", "whiten", "suffix_scan", "adjoint", "dense")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -38,6 +38,8 @@ _ARGTYPES = {
     "whiten_columns": [_I, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P],
     "suffix_reduce": [_I, _P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P],
     "suffix_replay": [_I, _P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P],
+    "adjoint_elements": [_I, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _P],
+    "adjoint_scores": [_I] + [_P] * 10 + [_LL, _I] + [_P] * 5,
     "dense_chol_solve": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "dense_tri_ut": [_P, _P, _I, _I, _I, _P, _P],
     "dense_tri_u": [_P, _P, _I, _I, _I, _P, _P],

@@ -15,8 +15,8 @@ with the suffix scan on the card (``ops/smoother.py``, K4a/K4b):
   K3 over U, which also writes every column's filtered mean; G is formed
   in float64.  Backward: one suffix scan with E = C, g = b (n, d, M + 1),
   L = W gives both the adjoint r of every column and the shared
-  information matrix N; the contractions of the scores (r ctsym r^T,
-  u ctsym, N A P) are plain batched products.  The JAX package runs this
+  information matrix N; the elements before it and the scores after it
+  (r ctsym r^T, u ctsym, N A P) are K5a and K5b.  The JAX package runs this
   backward as three XLA associative scans.
 * ``MixedWhitenGram`` -- the same (G, logdet) with the mixed-column
   backward of ``ssm/blocked_grad.py``: the y = 0 gain pass once (K1/K2),
@@ -31,6 +31,15 @@ from the M x M algebra are cast to float32 first.  Both take state dim
 every other SDE to the associative-scan engine (``logpdf_markov_pallas``
 here, ``gp/dtc.py::_whiten_all`` for the Gram).
 
+The adjoint's elements and scores around the suffix scan are two kernels
+of their own (``csrc/adjoint.cu``): K5a (``adjoint_elements``: C, b, W)
+and K5b (``adjoint_scores``: ct_A, ct_Q, ct_R, ct_U from the scanned r and
+N).  They replace no ``pallas_call`` -- the JAX package's VJP glue is fused
+by XLA -- and take the place of the batched 3 x 3 products and elementwise
+passes of ``ssm/blocked_grad.py::whiten_bwd_elements`` and
+``whiten_bwd_scores``, which stay as their plain versions (the CPU path and
+the check on the card) and as the tensor-code engines' backward.
+
 The backward of each of the three is the span ``gpar.whiten_gram.backward``
 (``utils/observability.py``).
 """
@@ -39,6 +48,7 @@ from __future__ import annotations
 
 import torch
 
+from gpar_at_scale_torch.ops.build import CudaKernel, aligned16, ptr, require_f32
 from gpar_at_scale_torch.ops.kalman import _e1, decorrelate_blocked, pallas_supported
 from gpar_at_scale_torch.ops.smoother import suffix_scan
 from gpar_at_scale_torch.ops.whiten import gain_rows, gram_forward, whiten_sweep
@@ -52,13 +62,103 @@ from gpar_at_scale_torch.utils.observability import span
 
 _F32 = torch.float32
 
+K5A = CudaKernel(
+    "K5a adjoint_elements", "adjoint", "adjoint_elements",
+    "no pallas_call: gpar_at_scale_tpu/ops/pallas_grad.py's VJP, fused by XLA",
+)
+K5B = CudaKernel(
+    "K5b adjoint_scores", "adjoint", "adjoint_scores",
+    "no pallas_call: gpar_at_scale_tpu/ops/pallas_grad.py's VJP, fused by XLA",
+)
+# K5b holds one step's rows of r, m and u in shared memory at the least.
+ADJOINT_MAX_COLUMNS = 4096
+
+
+def _check_adjoint(name, A, aux, H):
+    """(n, d, B) of the adjoint's inputs; raises on what K5a/K5b do not
+    take: state dim above 3, an emission row H other than e1, anything but
+    contiguous float32 on one device, or mismatched shapes."""
+    e, S, K, m, P = aux
+    require_f32(name, A, e, S, K, m, P)
+    n, d = A.shape[0], A.shape[-1]
+    if not 1 <= d <= 3 or A.shape != (n, d, d) or P.shape != (n, d, d):
+        raise ValueError(f"{name}: A, P must be (n, d, d) with d <= 3, got {tuple(A.shape)}, "
+                         f"{tuple(P.shape)}")
+    B = e.shape[-1] if e.ndim == 2 else 0
+    if e.shape != (n, B) or S.shape != (n,) or K.shape != (n, d) or m.shape != (n, d, B):
+        raise ValueError(f"{name}: e, S, K, m must be ({n}, B), ({n},), ({n}, {d}), ({n}, {d}, B); "
+                         f"got {[tuple(x.shape) for x in (e, S, K, m)]}")
+    if not 1 <= B <= ADJOINT_MAX_COLUMNS:
+        raise ValueError(f"{name}: {B} columns, the kernels take 1 to {ADJOINT_MAX_COLUMNS}")
+    if H is not None:
+        h = H.detach().cpu()
+        if h.shape != (d,) or h[0] != 1.0 or bool((h[1:] != 0.0).any()):
+            raise ValueError(f"{name}: the kernels take the emission row H = e1 only")
+    return n, d, B
+
+
+def _plain_row(A):
+    """H = e1 for the plain versions, on CPU tensors; None on the card,
+    where K5a/K5b need no H."""
+    return None if A.is_cuda else _e1(A.shape[-1], A)
+
+
+def adjoint_elements(A, aux, H=None):
+    """K5a: the suffix-scan elements (C (n, d, d), b (n, d, B), W (n, d, d))
+    of the adjoint recursions from A (n, d, d) and the forward's aux =
+    (e, S, K, m, P) (``ssm.blocked_grad.whiten_bwd_elements`` with H = e1).
+    float32, d <= 3; ``H``, where a caller has one, must be e1.  Launches
+    on CUDA tensors, runs the plain version on CPU tensors."""
+    n, d, B = _check_adjoint("adjoint_elements", A, aux, H)
+    if not A.is_cuda:
+        return whiten_bwd_elements(A, _e1(d, A) if H is None else H, aux)
+    e, S, K = aux[:3]
+    C, W = (torch.empty((n, d, d), dtype=_F32, device=A.device) for _ in range(2))
+    b = torch.empty((n, d, B), dtype=_F32, device=A.device)
+    K5A(d, ptr(A), ptr(K), ptr(S), ptr(e), n, B, ptr(C), ptr(b), ptr(W))
+    return C, b, W
+
+
+def adjoint_scores(A, aux, r, Nmat, ct_G, ct_ld, H=None):
+    """K5b: (ct_A (n, d, d), ct_Q (n, d, d), ct_R (n,), ct_U (n, B)) from the
+    scanned adjoints r (n, d, B) and N (n, d, d), the Gram's cotangent ct_G
+    (B, B) and the log-determinant's ct_ld, both cast to float32 first
+    (``ssm.blocked_grad.whiten_bwd_scores`` with H = e1).  float32, d <= 3;
+    ``H``, where a caller has one, must be e1.  Launches on CUDA tensors,
+    runs the plain version on CPU tensors."""
+    n, d, B = _check_adjoint("adjoint_scores", A, aux, H)
+    require_f32("adjoint_scores", A, r, Nmat)
+    if r.shape != (n, d, B) or Nmat.shape != (n, d, d):
+        raise ValueError(f"adjoint_scores: r, N must be ({n}, {d}, {B}), ({n}, {d}, {d}); got "
+                         f"{tuple(r.shape)}, {tuple(Nmat.shape)}")
+    ct_G = torch.as_tensor(ct_G, device=A.device).to(_F32)
+    if ct_G.shape != (B, B):
+        raise ValueError(f"adjoint_scores: ct_G must be ({B}, {B}), got {tuple(ct_G.shape)}")
+    if not A.is_cuda:
+        return whiten_bwd_scores(A, _e1(d, A) if H is None else H, aux, r, Nmat, ct_G, ct_ld)
+    # sym(ct_G) with its rows padded to whole 16-byte units
+    ctsym = torch.nn.functional.pad(0.5 * (ct_G + ct_G.T), (0, -B % 4)).contiguous()
+    if torch.is_tensor(ct_ld):
+        ld = ct_ld.detach().to(device=A.device, dtype=_F32).reshape(1)
+    else:  # a fill on the device, not a copy from the host
+        ld = torch.full((1,), float(ct_ld), dtype=_F32, device=A.device)
+    A, e, S, K, m, P, r, Nmat = (aligned16(x) for x in (A, *aux, r, Nmat))
+    ct_A, ct_Q = (torch.empty((n, d, d), dtype=_F32, device=A.device) for _ in range(2))
+    ct_R = torch.empty(n, dtype=_F32, device=A.device)
+    ct_U = torch.empty((n, B), dtype=_F32, device=A.device)
+    K5B(d, ptr(A), ptr(P), ptr(K), ptr(S), ptr(e), ptr(m), ptr(r), ptr(Nmat), ptr(ctsym), ptr(ld),
+        n, B, ptr(ct_A), ptr(ct_Q), ptr(ct_R), ptr(ct_U))
+    return ct_A, ct_Q, ct_R, ct_U
+
 
 def _bwd(A, aux, ct_G, ct_ld):
-    """(ct_A, ct_Q, ct_R, ct_U) through one suffix scan on K4a/K4b."""
-    H = _e1(A.shape[-1], A)
-    C, b, W = whiten_bwd_elements(A, H, aux)
+    """(ct_A, ct_Q, ct_R, ct_U): the elements on K5a, one suffix scan on
+    K4a/K4b, the scores on K5b."""
+    aux = tuple(x.contiguous() for x in aux)
+    H = _plain_row(A)
+    C, b, W = adjoint_elements(A, aux, H)
     r, Nmat = suffix_scan(C, b, W)
-    return whiten_bwd_scores(A, H, aux, r, Nmat, ct_G, ct_ld)
+    return adjoint_scores(A, aux, r, Nmat, ct_G, ct_ld, H)
 
 
 class LgssmLoglik(torch.autograd.Function):
@@ -136,19 +236,20 @@ def gain_pass(A, Q, R):
 def whiten_bwd_mixed_chunk(A, U, Fk, gains, ct_chunk=None):
     """The kernel route of ``ssm.blocked_grad.whiten_bwd_mixed_chunk``:
     (ct_A, ct_Q, ct_R, ct_U) of the mixed columns U F_k (Fk (B, K)) from
-    one K3 sweep with means on the shared ``gains`` (``gain_pass``) and one
-    K-column suffix scan with W = 0 on K4a/K4b, scored at the chunk's Gram
+    one K3 sweep with means on the shared ``gains`` (``gain_pass``), the
+    elements on K5a, one K-column suffix scan with W = 0 on K4a/K4b and the
+    scores on K5b, scored at the chunk's Gram
     cotangent ``ct_chunk`` (K, K) (-I if None).  float32, H = e1."""
     rows, S, K, P = gains
     Fk = Fk.to(_F32)
     _, alpha, m = whiten_sweep(rows, (U @ Fk).contiguous(), A.shape[-1], want_means=True)
     aux = (alpha * torch.sqrt(S)[:, None], S, K, m, P)
-    H = _e1(A.shape[-1], A)
-    C, b, W = whiten_bwd_elements(A, H, aux)
+    H = _plain_row(A)
+    C, b, W = adjoint_elements(A, aux, H)
     r, Nmat = suffix_scan(C, b, torch.zeros_like(W))
     if ct_chunk is None:
         ct_chunk = -torch.eye(Fk.shape[1], dtype=_F32, device=A.device)
-    ct_A, ct_Q, ct_R, ct_Ut = whiten_bwd_scores(A, H, aux, r, Nmat, ct_chunk, 0.0)
+    ct_A, ct_Q, ct_R, ct_Ut = adjoint_scores(A, aux, r, Nmat, ct_chunk, 0.0, H)
     return ct_A, ct_Q, ct_R, ct_Ut @ Fk.T
 
 
