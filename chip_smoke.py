@@ -150,6 +150,13 @@ Phases, each of which fails the run:
    N <= 2048 are held against the same function on the CPU.  The data and
    functions of the [ffbs], [smc], [nuts-smc], [segmented], [mixed-bwd] and
    [dist] seq paths come from the port's ``benchmarks/`` modules.
+22. batch-scan (run before phase 12) -- ``predict_scaled_batch`` above
+   DENSE_N_MAX: 64 draws around million_dtc's start at N = 1e6, N* = 1e4,
+   M = 32 in one request (the draws' series end to end through K1-K4b
+   once), then one draw; the scan kernels' launches and the host syncs of
+   a request must not depend on B; draws 0, 32 and 63 against float64
+   ``predict_scaled`` within million_dtc (c)'s bound; the batch's peak
+   device memory.
 
 Phase 3 also runs the Monte-Carlo predictive ([mc]): the served chain's
 last conditional with ``predict_scaled(num_samples=100, generator=...)``
@@ -2553,6 +2560,15 @@ MIXED_M_CHECK, MIXED_M_TRAIN = 128, 256
 MIXED_START = (0.5, 1.0, 1.0, 0.7, 0.2)
 
 
+# [batch-scan]: the Bayesian predictive of the long-series conditional
+# (portbench's gpar_dtc_m32_serve): predict_scaled_batch of B = 64 draws
+# around million_dtc.py's start (sd 0.001) against its q(u), N = 10^6,
+# N* = 10^4, M = 32, float32 through the scan branch; 3 of the draws
+# against float64 predict_scaled within million_dtc (c)'s sd bound.
+BSCAN_N, BSCAN_N_STAR, BSCAN_M, BSCAN_B, BSCAN_DRAW_SD = 1_000_000, 10_000, 32, 64, 1e-3
+BSCAN_SCAN_KERNELS = ("K1", "K2", "K3", "K4a", "K4b")
+
+
 def _all_counts():
     from gpar_at_scale_torch.ops import launch_counts
 
@@ -2646,6 +2662,70 @@ def ffbs_phase(seed, failures):
     if not ok_:
         failures.append("[ffbs] the posterior draws failed a check")
     return launches
+
+
+def batch_scan_phase(seed, failures):
+    """[batch-scan] ``predict_scaled_batch`` above DENSE_N_MAX on the card:
+    B = 64 draws at N = 10^6, N* = 10^4 (6.5e7 spliced steps through K1-K4b
+    once), then B = 1; the scan kernels' launches and the host syncs of a
+    request must not depend on B; 3 of the 64 answers against float64
+    ``predict_scaled`` (the tensor-code blocked smoother) within
+    ``DTC_PRED_SD`` sd; peak device memory of the batch.  Returns the
+    launches of the batched request."""
+    import torch
+
+    from gpar_at_scale_torch.benchmarks import million_dtc
+    from gpar_at_scale_torch.gp.dtc import predict_scaled, predict_scaled_batch
+    from gpar_at_scale_torch.utils.observability import counts
+
+    f32 = torch.float32
+    prob = million_dtc.problem(BSCAN_N, BSCAN_M, BSCAN_N_STAR, _DEV, seed)
+    p0 = million_dtc.start(_DEV)
+    qu = million_dtc.q_u(prob, p0)
+    gen = torch.Generator(device=_DEV).manual_seed(seed)
+    draws = p0[None] + BSCAN_DRAW_SD * torch.randn(BSCAN_B, 5, generator=gen, device=_DEV, dtype=f32)
+
+    def request(P):
+        time_k, out_k, nv = million_dtc.kernels(P.T)
+        with torch.no_grad():
+            return predict_scaled_batch(out_k, time_k, qu, prob.X, prob.t, prob.y, prob.t_star,
+                                        prob.X_star, nv, dtype=f32)
+
+    costs = {}
+    for b in (BSCAN_B, 1):
+        request(draws[:b])  # warm
+        _reset_peak()
+        _zero_counts()
+        syncs = counts()["host_syncs"]
+        t0 = time.perf_counter()
+        pred = request(draws[:b])
+        launches = _all_counts()
+        secs = _phase_end(f"batch-scan B={b}", t0, launches)
+        costs[b] = ({k.split()[0]: v for k, v in launches.items()
+                     if k.split()[0] in BSCAN_SCAN_KERNELS}, counts()["host_syncs"] - syncs, secs)
+        if b == BSCAN_B:
+            batch, batch_launches, peak = pred, launches, _peak()
+    gaps = []
+    for i in (0, BSCAN_B // 2, BSCAN_B - 1):
+        time_k, out_k, nv = million_dtc.kernels(draws[i].double())
+        with torch.no_grad():
+            want = predict_scaled(out_k, time_k, qu, prob.X, prob.t, prob.y, prob.t_star,
+                                  prob.X_star, nv, dtype=torch.float64)
+        sd = want.var.sqrt()
+        gaps.append(max(float(((batch.mean[i].double() - want.mean) / sd).abs().max()),
+                        float(((batch.var[i].double().sqrt() - sd) / sd).abs().max())))
+    (l64, s64, t64), (l1, s1, t1) = costs[BSCAN_B], costs[1]
+    ok_ = (l64 == l1 and all(v == 1 for v in l64.values()) and s64 <= s1
+           and bool(torch.isfinite(batch.mean).all() and torch.isfinite(batch.var).all())
+           and max(gaps) <= DTC_PRED_SD)
+    _log(f"[batch-scan] B={BSCAN_B}: {t64:.4f} s a request ({BSCAN_B * BSCAN_N_STAR / t64:.4e} obs/s), "
+         f"peak device memory {peak:.2f} GiB; B=1: {t1:.4f} s; scan launches {l64} at B={BSCAN_B}, "
+         f"{l1} at B=1; host syncs {s64} and {s1}; draws 0, {BSCAN_B // 2}, {BSCAN_B - 1} against "
+         f"float64 predict_scaled: {', '.join(f'{g:.2e}' for g in gaps)} sd (<= {DTC_PRED_SD}) "
+         f"{'ok' if ok_ else 'FAIL'}")
+    if not ok_:
+        failures.append("[batch-scan] the batched long-series predictive failed a check")
+    return batch_launches
 
 
 def smc_phase(seed, failures):
@@ -3854,6 +3934,9 @@ def main(argv=None):
          + str(par_launches) + "; api " + str(api_launches) + "; EEG 'on' K6a/K6b/K6c "
          + f"{eeg_launches}, in parallel {eeg_par_launches}; "
          + "; ".join(f"{path} {c}" for path, c in new_paths))
+    # the batched long-series predictive, on an emptied cache: about 60 GiB
+    torch.cuda.empty_cache()
+    _log(f"[kernels] launches of the batched long-series request: {batch_scan_phase(args.seed, failures)}")
     # 12. the associative-scan engine, last: its autograd takes the most memory
     torch.cuda.empty_cache()
     assoc_phase(t, Y, params, failures)

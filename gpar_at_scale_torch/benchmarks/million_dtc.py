@@ -23,9 +23,10 @@ inducing inputs every N/M-th input (:96); start pack_gpar(0.5, 1, 1, 0.7,
   (c) ``predict`` -- the analytic predictive at N + N* points: q(u) through
       ``gp/dtc.py::compute_q_u(filter_fn="pallas")`` (K1/K2, K3), then the
       (M + 1)-column smoothing stack [y - f_x | G] of the script's
-      ``prepare`` (:575-596) smoothed on the kernels: the gain pass on K1/K2,
-      K3 with its means, the shared smoothing elements, one suffix scan
-      over the M + 1 columns on K4a/K4b.
+      ``prepare`` (:575-596) smoothed on the kernels by
+      ``ops/smoother.py::smooth_columns``: the gain pass on K1/K2, K3 with
+      its means, the shared smoothing elements, one suffix scan over the
+      M + 1 columns on K4a/K4b.
 
 ``--check``: the staged gradient (float32, the kernels) against autograd of
 ``gp/dtc.py::dtc_objective(filter_fn="blocked")`` in float64 (the
@@ -70,6 +71,7 @@ from gpar_at_scale_torch.examples._common import (
     timed,
 )
 from gpar_at_scale_torch.ops import launch_counts
+from gpar_at_scale_torch.ops.smoother import smooth_columns
 
 _LOG_2PI = 1.8378770664093453
 F32, F64 = torch.float32, torch.float64
@@ -249,24 +251,6 @@ def q_u(prob: Problem, p):
                            uu_ridge="auto", filter_fn="pallas")
 
 
-def smooth_columns(lgssm, cols):
-    """The RTS smoother of the columns ``cols`` (N, C) on the kernels,
-    float32: the y = 0 gain pass (K1/K2) and K3 with its filtered means, the
-    smoothing elements (E, L shared by the columns, g per column), one
-    C-column suffix scan (K4a/K4b).  Returns (means (N, C), variances (N,))."""
-    from gpar_at_scale_torch.ops.smoother import suffix_scan
-    from gpar_at_scale_torch.ops.whiten import whiten_columns
-    from gpar_at_scale_torch.ssm.blocked import smoothing_elements
-
-    _, _, _, (_, _, _, m, P) = whiten_columns(lgssm, cols, want_aux=True)
-    E, _, L = smoothing_elements(lgssm, m[:, :, 0], P)
-    A = lgssm.A.to(F32)
-    A_next = torch.cat([A[1:], torch.zeros_like(A[:1])])
-    g = m - E @ (A_next @ m)
-    ms, Ps = suffix_scan(E.contiguous(), g.contiguous(), L.contiguous())
-    return ms[:, 0, :], torch.clamp(Ps[:, 0, 0], min=0.0)
-
-
 def _spliced(prob: Problem, p, qu):
     """The script's ``prepare`` (:575-596): the spliced LGSSM (test points at
     noise 1e10), f_x's mean fx_bar and its factor G = K_*u L_uu^-T L_D^-T
@@ -293,8 +277,7 @@ def predict(prob: Problem, p, qu=None):
     (N*,) float64 and q(u)."""
     qu = q_u(prob, p) if qu is None else qu
     lg, y_s, fx_bar, G, inv_order = _spliced(prob, p, qu)
-    cols = torch.cat([(y_s - fx_bar)[:, None], G], dim=1).float()
-    sm_mean, sm_var = smooth_columns(lg, cols)
+    sm_mean, sm_var = smooth_columns(lg, torch.cat([(y_s - fx_bar)[:, None], G], dim=1).float())
     mean_all = fx_bar + sm_mean[:, 0].double()
     Hm = G - sm_mean[:, 1:].double()
     var_all = (Hm * Hm).sum(1) + sm_var.double()

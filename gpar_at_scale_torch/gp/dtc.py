@@ -57,7 +57,8 @@ search treats the NaN the JAX package gets there.
 
 ``predict_scaled`` has no ``smooth_fn`` argument: the port dispatches on
 N_all alone.  ``predict_scaled_batch`` is its analytic predictive for a
-batch of parameter sets on the dense branch (the JAX package vmaps
+batch of parameter sets on both branches, the scan branch's series laid
+end to end through the kernels once (the JAX package vmaps
 ``predict_scaled``).  The iid-noise sparse GP (``dtc_objective_iid``,
 ``titsias_elbo``, ``predict_sparse_iid``) factors and solves through
 ``utils/psd.py``, so it takes K6a-c under ``engine.pallas_dense``.
@@ -413,14 +414,16 @@ def predict_scaled(
     steps, K_*u L^-T and Phi L_D^-T are two triangular solves in ``dtype``,
     as in the JAX package (K6b under the dense switch); above it they are
     products with float64 inverse factors, since a triangular solve with
-    N_all ~ 1e6 right-hand sides takes seconds on the card."""
+    N_all ~ 1e6 right-hand sides takes seconds on the card.  The call is
+    the span ``gpar.predict``, its smoother ``gpar.predict.smooth``."""
     eps = None
     if num_samples > 0:
         if generator is None:
             raise ValueError("num_samples > 0 requires a torch.Generator")
         eps = qu.sample_eps(generator, num_samples)
-    return _predict_scaled(out_kernel, time_kernel, qu, V, t, y, t_star, V_star, noise_var,
-                           mean, eps=eps, dtype=dtype)
+    with span("gpar.predict"):
+        return _predict_scaled(out_kernel, time_kernel, qu, V, t, y, t_star, V_star, noise_var,
+                               mean, eps=eps, dtype=dtype)
 
 
 def _predict_scaled(
@@ -453,13 +456,15 @@ def _predict_scaled(
         else:
             G = Phi @ _tri_inverse(qu.L_D).to(dtype).T
         fx_bar = Phi @ qu.m_eps.to(dtype)
-        sm = smooth_fn(lgssm, torch.cat([(y_s - fx_bar)[:, None], G], dim=1))
+        with span("gpar.predict.smooth"):
+            sm = smooth_fn(lgssm, torch.cat([(y_s - fx_bar)[:, None], G], dim=1))
         mean_all = fx_bar + sm.mean[:, 0]
         H = G - sm.mean[:, 1:]  # (I - S) G
         var_all = (H * H).sum(1) + sm.var
     else:
         fx = Phi @ eps.to(dtype)  # (N_all, S)
-        sm = smooth_fn(lgssm, y_s[:, None] - fx)
+        with span("gpar.predict.smooth"):
+            sm = smooth_fn(lgssm, y_s[:, None] - fx)
         f = fx + sm.mean
         mean_all = f.mean(1)
         var_all = f.var(1, correction=0) + sm.var
@@ -497,15 +502,26 @@ def predict_scaled_batch(
     the JAX package's ``jax.vmap`` of ``predict_scaled`` over parameter
     vectors (``bench.py``'s batched serving).
 
-    Only the dense branch is batched (N + N* <= DENSE_N_MAX spliced
-    steps; above it ``ValueError``): the scan kernels K1-K4b take one
-    series per call.  q(u)'s factors are shared, so K_*u L_uu^-T and
-    Phi L_D^-T are one triangular solve each over all B x N_all rows
-    (K6b under the dense switch), and the smoother factors the B spliced
-    covariances and solves their N_all + M + 1 columns in one K6a launch
-    (under "off", batched ``torch.linalg``).  The call is the span
-    ``gpar.request``, its stages ``gpar.request.splice``, ``.kernels``,
-    ``.shared_solves``, ``.condition`` and ``.moments``."""
+    Up to DENSE_N_MAX spliced steps (N + N*) q(u)'s factors are shared,
+    so K_*u L_uu^-T and Phi L_D^-T are one triangular solve each over all
+    B x N_all rows (K6b under the dense switch), and the smoother factors
+    the B spliced covariances and solves their N_all + M + 1 columns in
+    one K6a launch (under "off", batched ``torch.linalg``).
+
+    Above it (the scan branch) Phi and G are products with q(u)'s float64
+    inverse factors, as in ``predict_scaled``; the B spliced LGSSMs are
+    discretized at once (``ssm/markov.py::lgssm_batch_of``) and laid end to
+    end as one series of B N_all steps, whose M + 1 columns [y - fx_bar | G]
+    go through the kernels once (``ops/smoother.py::smooth_columns``: K1/K2,
+    K3, K4a/K4b), so launches and host syncs do not grow with B; only the
+    held-out rows are kept.  Batches of more than ``SCAN_BATCH_STEPS``
+    steps run in chunks of draws.  float32 requests take the kernels,
+    float64 ones the tensor-code blocked smoother.
+
+    The call is the span ``gpar.request``, its stages
+    ``gpar.request.splice``, ``.kernels``, ``.shared_solves``, then
+    ``.condition`` (dense) or ``.discretize`` and ``.smooth`` (scan), and
+    ``.moments``."""
     with span("gpar.request"):
         return _predict_scaled_batch(out_kernel, time_kernel, qu, V, t, y, t_star, V_star,
                                      noise_var, mean, dtype)
@@ -518,10 +534,8 @@ def _predict_scaled_batch(out_kernel, time_kernel, qu: QU, V, t, y, t_star, V_st
     n, n_star = t.shape[0], t_star.shape[0]
     n_all = n + n_star
     if n_all > DENSE_N_MAX:
-        raise ValueError(
-            f"predict_scaled_batch: {n_all} spliced steps exceed DENSE_N_MAX = {DENSE_N_MAX}; "
-            "the scan kernels have no parameter-batch axis (ROADMAP: the batched predictive "
-            "on the scan branch), so call predict_scaled once per parameter set")
+        return _predict_batch_scan(out_kernel, time_kernel, qu, V, t, y, t_star, V_star,
+                                   noise_var, mean, dtype)
     dev = t.device
     out_b, time_b = _batched_kernel(out_kernel, dtype, dev), _batched_kernel(time_kernel, dtype, dev)
     nv = torch.as_tensor(noise_var, dtype=dtype, device=dev)
@@ -556,6 +570,84 @@ def _predict_scaled_batch(out_kernel, time_kernel, qu: QU, V, t, y, t_star, V_st
         mean_star = (mean + mean_all)[:, inv_order][:, n:]
         return ScaledPrediction(mean=mean_star,
                                 var=torch.clamp(var_all[:, inv_order][:, n:], min=0.0))
+
+
+# Most steps (draws x spliced steps) one pass of the scan branch of
+# ``predict_scaled_batch`` takes: about 1 KiB of device memory a step with
+# M = 32 (the filtered means and the smoothed columns, (3, M + 1) float32
+# each), so 64 draws at N_all = 1.01e6 run as one pass on an 80 GB card.
+SCAN_BATCH_STEPS = 1 << 26
+
+
+def _draws(kernel: Kernel, sl: slice):
+    """``kernel`` with the draws ``sl`` of its (B,) hyperparameters."""
+    out = copy.copy(kernel)
+    for name in ("lengthscale", "variance"):
+        setattr(out, name, getattr(kernel, name)[sl])
+    return out
+
+
+def _predict_batch_scan(out_kernel, time_kernel, qu: QU, V, t, y, t_star, V_star, noise_var,
+                        mean, dtype) -> ScaledPrediction:
+    """The scan branch of ``predict_scaled_batch`` (inputs already in
+    ``dtype``)."""
+    from gpar_at_scale_torch.ops.smoother import smooth_columns
+    from gpar_at_scale_torch.ssm.markov import lgssm_batch_of
+
+    dev = t.device
+    n, n_star = t.shape[0], t_star.shape[0]
+    n_all = n + n_star
+    as_b = lambda v: torch.as_tensor(v, dtype=dtype, device=dev)  # noqa: E731
+    out_k, time_k = copy.copy(out_kernel), copy.copy(time_kernel)
+    for k in (out_k, time_k):
+        k.lengthscale, k.variance = as_b(k.lengthscale), as_b(k.variance)
+    nv = as_b(noise_var)
+    b = nv.shape[0]
+    with span("gpar.request.splice"):
+        order, inv_order, t_s, _ = splice(t, t_star, 0.0, dtype)
+        V_s = torch.cat([V, V_star])[order]
+        y_s = torch.cat([y - mean, y.new_zeros(n_star)])[order]
+        held = inv_order[n:]  # the held-out rows of the spliced series, in t_star's order
+    with span("gpar.request.shared_solves"):
+        W_uu = _tri_inverse(qu.L_uu).to(dtype).T  # Phi = K_*u W_uu
+        W_D = _tri_inverse(qu.L_D).to(dtype).T  # G = Phi W_D
+        m_eps = qu.m_eps.to(dtype)
+    step = max(1, SCAN_BATCH_STEPS // n_all)
+    means, variances = [], []
+    for lo in range(0, b, step):
+        sl = slice(lo, min(b, lo + step))
+        c = sl.stop - sl.start
+        with span("gpar.request.discretize"):
+            noise = torch.cat([nv[sl, None].expand(c, n),
+                               torch.full((c, n_star), 1e10, dtype=dtype, device=dev)], dim=1)
+            lg = lgssm_batch_of(_draws(time_k, sl), t_s, noise[:, order], dtype)
+            del noise
+        with span("gpar.request.kernels"):
+            K_su = _batched_kernel(_draws(out_k, sl), dtype, dev)(V_s, qu.Z.to(dtype))  # (c, N_all, M)
+        with span("gpar.request.shared_solves"):
+            Phi = K_su @ W_uu
+            del K_su
+            G = Phi @ W_D
+            fx_bar = Phi @ m_eps  # (c, N_all)
+            del Phi
+            resid = y_s - fx_bar
+            fx_held, G_held = fx_bar[:, held], G[:, held]
+            del fx_bar
+        with span("gpar.request.smooth"):
+            # one series of c N_all steps; handed over without a reference
+            # kept here, so that the smoother drops the columns once read
+            cols = [torch.cat([resid[..., None], G], dim=-1).reshape(c * n_all, -1)]
+            del G, resid
+            sm_mean, sm_var = smooth_columns(lg, cols.pop())
+            del lg
+            rows = (torch.arange(c, device=dev) * n_all)[:, None] + held[None, :]
+            s_mean, s_var = sm_mean[rows].to(dtype), sm_var[rows].to(dtype)  # (c, N*, M + 1), (c, N*)
+            del sm_mean, sm_var
+        with span("gpar.request.moments"):
+            means.append(mean + fx_held + s_mean[..., 0])
+            H = G_held - s_mean[..., 1:]  # (I - S) G at the held-out rows
+            variances.append(torch.clamp((H * H).sum(-1) + s_var, min=0.0))
+    return ScaledPrediction(mean=torch.cat(means), var=torch.cat(variances))
 
 
 # ---------------------------------------------------------------------------

@@ -236,6 +236,51 @@ def pallas_smooth(lgssm: LGSSM, y, return_state: bool = False, boundary=None):
     return f_mean, f_var, ll, ms, Ps, E
 
 
+# Steps per slice of the smoother's per-column elements g = m - E A' m, so
+# that the product's temporary stays a slice's size at B N ~ 6.5e7 steps
+G_SLICE_STEPS = 1 << 22
+
+
+def smooth_columns(lgssm: LGSSM, cols):
+    """The RTS smoother of the columns ``cols`` (N, C): (means (N, C),
+    variances (N,)) of the first state component.
+
+    float32 on the kernels: the y = 0 gain pass (K1/K2) and K3 with its
+    filtered means, the smoothing elements (E, L shared by the columns, g
+    per column), one C-column suffix scan (K4a/K4b); one launch of each
+    whatever N and C.  The caller should hold no other reference to
+    ``cols``: it is dropped once K3 has read it.  Columns in another
+    precision, or SDEs the kernels cannot take, run the tensor-code
+    blocked smoother in their own precision (``ssm/blocked.py::
+    blocked_smooth``), as ``gp/dtc.py::predict_scaled`` does above
+    DENSE_N_MAX.
+
+    Series laid end to end (``ssm/markov.py::lgssm_batch_of``) smooth as
+    each alone: the filter restarts at each series' first step (A = 0,
+    Q = Pinf) and the gain E into it is zero."""
+    from gpar_at_scale_torch.ops.whiten import gain_rows, whiten_sweep
+    from gpar_at_scale_torch.ssm.blocked import blocked_smooth
+
+    if cols.dtype != torch.float32 or not pallas_supported(lgssm):
+        sm = blocked_smooth(lgssm, cols)
+        return sm.mean, sm.var
+    A = lgssm.A.to(torch.float32).contiguous()
+    n, d = A.shape[0], A.shape[-1]
+    _, _, _, S, K, _, P = decorrelate_blocked(
+        lgssm, cols.new_zeros(n), return_gains=True, return_moments=True)
+    _, alpha, m = whiten_sweep(gain_rows(A, S, K), cols.contiguous(), d, want_means=True)
+    del cols, alpha, S, K
+    E, _, L = smoothing_elements(lgssm, m[:, :, 0], P)
+    del P
+    A_next = torch.cat([A[1:], torch.zeros_like(A[:1])])
+    for lo in range(0, n, G_SLICE_STEPS):  # g = m - E A_next m, in place
+        sl = slice(lo, min(n, lo + G_SLICE_STEPS))
+        m[sl] -= E[sl] @ (A_next[sl] @ m[sl])
+    del A_next
+    ms, Ps = suffix_scan(E.contiguous(), m, L.contiguous())
+    return ms[:, 0, :], torch.clamp(Ps[:, 0, 0], min=0.0)
+
+
 # ---------------------------------------------------------------------------
 # Posterior draws (FFBS) on the kernels
 # ---------------------------------------------------------------------------

@@ -84,34 +84,28 @@ class LGSSM:
 
 
 def _matern_block(d: int, l, s):
-    """(F, Pinf, H, lam) of the Matern block with state dim d."""
+    """(F, Pinf, H, lam) of the Matern block with state dim d.  l and s are
+    scalars, or (B,) tensors for B blocks at once: F and Pinf are then
+    (B, d, d) and lam (B,)."""
     z = torch.zeros_like(l)
     o = torch.ones_like(l)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
     if d == 1:
         lam = 1.0 / l
-        F = (-lam).reshape(1, 1)
-        Pinf = s.reshape(1, 1)
+        F = (-lam)[..., None, None]
+        Pinf = (s * o)[..., None, None]
     elif d == 2:
         lam = _SQRT3 / l
-        F = torch.stack([torch.stack([z, o]), torch.stack([-(lam**2), -2.0 * lam])])
-        Pinf = torch.diag(torch.stack([s * o, s * lam**2]))
+        F = mat([[z, o], [-(lam**2), -2.0 * lam]])
+        Pinf = mat([[s * o, z], [z, s * lam**2]])
     else:
         lam = _SQRT5 / l
-        F = torch.stack(
-            [
-                torch.stack([z, o, z]),
-                torch.stack([z, z, o]),
-                torch.stack([-(lam**3), -3.0 * lam**2, -3.0 * lam]),
-            ]
-        )
+        F = mat([[z, o, z], [z, z, o], [-(lam**3), -3.0 * lam**2, -3.0 * lam]])
         kappa = s * lam**2 / 3.0
-        Pinf = torch.stack(
-            [
-                torch.stack([s * o, z, -kappa]),
-                torch.stack([z, kappa, z]),
-                torch.stack([-kappa, z, lam**4 * s]),
-            ]
-        )
+        Pinf = mat([[s * o, z, -kappa], [z, kappa, z], [-kappa, z, lam**4 * s]])
     H = torch.zeros(d, dtype=l.dtype, device=l.device)
     H[0] = 1.0
     host_sync()  # a host scalar written into a device tensor: a blocking copy
@@ -151,40 +145,43 @@ def _blocks_of(kernel, dtype, device, outer_scale):
 
 def _expm_block(block: SDEBlock, dt):
     """Closed-form expm(F dt) for a vector of gaps dt (n,) -> (n, d, d),
-    via the nilpotent split F = -lam I + N."""
+    via the nilpotent split F = -lam I + N; (B, n, d, d) for a block of B
+    (``_matern_block`` with (B,) hyperparameters)."""
     d = block.dim
     I = torch.eye(d, dtype=block.F.dtype, device=block.F.device)
-    N = block.F + block.lam * I
+    N = (block.F + block.lam[..., None, None] * I)[..., None, :, :]
     dt3 = dt[:, None, None]
     out = I + N * dt3
     if d >= 3:
         out = out + (N @ N) * (dt3 * dt3 * 0.5)
-    return torch.exp(-block.lam * dt3) * out
+    return torch.exp(-block.lam[..., None, None, None] * dt3) * out
 
 
 def _q_block(block: SDEBlock, dt):
     """Q = Pinf - A Pinf A^T of one block for gaps dt (n,) -> (n, d, d), in
-    closed form.  With A = exp(-lam dt) sum_i dt^i N^i / i!,
+    closed form ((B, n, d, d) for a block of B).  With
+    A = exp(-lam dt) sum_i dt^i N^i / i!,
     A Pinf A^T = exp(-2 lam dt) sum_p dt^p B_p with
     B_p = sum_{i+j=p} N^i Pinf (N^j)^T / (i! j!), a polynomial in dt with
     d x d coefficients (Horner below): elementwise work over the n gaps,
     where a batched n x (d x d) product runs far below the card's rate."""
     d = block.dim
     I = torch.eye(d, dtype=block.F.dtype, device=block.F.device)
-    N = block.F + block.lam * I
+    N = block.F + block.lam[..., None, None] * I
     Np = [I]
     for _ in range(d - 1):
         Np.append(Np[-1] @ N)
     fact = (1.0, 1.0, 0.5)
-    B = [torch.zeros_like(I) for _ in range(2 * d - 1)]
+    B = [torch.zeros_like(block.Pinf) for _ in range(2 * d - 1)]
     for i in range(d):
         for j in range(d):
-            B[i + j] = B[i + j] + (fact[i] * fact[j]) * (Np[i] @ block.Pinf @ Np[j].T)
+            B[i + j] = B[i + j] + (fact[i] * fact[j]) * (Np[i] @ block.Pinf @ Np[j].transpose(-1, -2))
+    B = [Bp[..., None, :, :] for Bp in B]
     dt3 = dt[:, None, None]
-    acc = B[-1].expand(dt.shape[0], d, d)
+    acc = B[-1]
     for Bp in reversed(B[:-1]):
         acc = acc * dt3 + Bp
-    return block.Pinf - torch.exp(-2.0 * block.lam * dt3) * acc
+    return block.Pinf[..., None, :, :] - torch.exp(-2.0 * block.lam[..., None, None, None] * dt3) * acc
 
 
 def _block_diag_batched(mats):
@@ -249,3 +246,43 @@ def lgssm_of(kernel: Kernel, t, noise_var, dtype=None) -> LGSSM:
     lg = discretize(to_sde(kernel, f64, t.device), t.to(f64), noise_var)
     return LGSSM(A=lg.A.to(dtype), Q=lg.Q.to(dtype), H=lg.H.to(dtype), R=lg.R.to(dtype),
                  e1=lg.e1)
+
+
+def lgssm_batch_of(kernel: Kernel, t, noise_var, dtype=None) -> LGSSM:
+    """B Matern time GPs on one sorted grid t (N,) as one LGSSM of B N
+    steps, the B series laid end to end: ``kernel`` is a Matern12/32/52
+    whose lengthscale and variance are (B,) tensors, ``noise_var`` (B,) or
+    (B, N).  Series b is steps [b N, (b + 1) N) and ``lgssm_of`` of its
+    own kernel; its first step has A = 0 and Q = Pinf, so a filter restarts
+    from the prior there and a smoother's gain into it is zero: the scan
+    engines take the B series as one without mixing them.
+
+    The discretization runs in float64 for all B at once and is cast to
+    ``dtype`` (t's by default), as ``lgssm_of``; the host waits as often as
+    for one series."""
+    if type(kernel) not in _ORDER:
+        raise TypeError(f"lgssm_batch_of takes a Matern kernel, got {type(kernel).__name__}")
+    t = torch.as_tensor(t)
+    dtype = t.dtype if dtype is None else dtype
+    f64 = torch.float64
+    as64 = lambda v: torch.as_tensor(v, dtype=f64, device=t.device)  # noqa: E731
+    ell, var = as64(kernel.lengthscale), as64(kernel.variance)
+    if ell.ndim != 1 or var.shape != ell.shape:
+        raise ValueError(f"lgssm_batch_of takes (B,) hyperparameters, got {tuple(ell.shape)}, "
+                         f"{tuple(var.shape)}")
+    b, n = ell.shape[0], t.shape[0]
+    block = _matern_block(_ORDER[type(kernel)], ell, var)
+    t = t.to(f64)
+    dts = torch.diff(t)
+    unsorted = bool((dts < 0).any())
+    host_sync()
+    if unsorted:
+        raise ValueError("lgssm_batch_of: time grid must be sorted ascending (got negative time gaps)")
+    d = block.dim
+    A = torch.cat([block.F.new_zeros((b, 1, d, d)), _expm_block(block, dts)], dim=1)
+    Q = torch.cat([block.Pinf[:, None], _q_block(block, dts)], dim=1)
+    Q = 0.5 * (Q + Q.transpose(-1, -2))
+    R = as64(noise_var)
+    R = (R[:, None] if R.ndim == 1 else R).expand(b, n)
+    return LGSSM(A=A.reshape(b * n, d, d).to(dtype), Q=Q.reshape(b * n, d, d).to(dtype),
+                 H=block.H.to(dtype), R=R.reshape(b * n).to(dtype), e1=True)

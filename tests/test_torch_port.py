@@ -4273,9 +4273,9 @@ def test_batched_predictive_matches_sequential(monkeypatch):
     on one cached q(u) (bench.py's request, N = 156, N* = 100, float64):
     means and variances within 1e-12 of their largest magnitudes; under
     "interpret" in float32 (the kernels' plain versions: one batched K6a
-    and two K6b calls) within 1e-4 of the float64 result; above
-    DENSE_N_MAX spliced steps it raises ValueError, and a kernel that is not
-    stationary raises TypeError."""
+    and two K6b calls) within 1e-4 of the float64 result; a kernel that is
+    not stationary raises TypeError.  Above DENSE_N_MAX spliced steps the
+    scan branch answers (``test_batched_scan_*``)."""
     from gpar_at_scale_torch.benchmarks import bench
     from gpar_at_scale_torch.gp.dtc import predict_scaled_batch
 
@@ -4298,12 +4298,191 @@ def test_batched_predictive_matches_sequential(monkeypatch):
     _near(got32.var, _np(got.var), 1e-4)
     t, t_star, X, X_star, y = bench.bench_data(cpu, F64)
     k = tk.Matern52(lengthscale=torch.ones(2, dtype=F64), variance=torch.ones(2, dtype=F64))
-    long_t = torch.linspace(0, 40, 2000, dtype=F64)
-    with pytest.raises(ValueError, match="DENSE_N_MAX"):
-        predict_scaled_batch(k, k, qu, X[:1].expand(2000, -1), long_t, long_t, t_star, X_star,
-                             torch.ones(2, dtype=F64))
     with pytest.raises(TypeError, match="stationary"):
         predict_scaled_batch(k + k, k, qu, X, t, y, t_star, X_star, torch.ones(2, dtype=F64))
+
+
+@pytest.fixture(scope="module")
+def scan_batch_case():
+    """The long-series predictive at a CPU's size: N = 3000 training and
+    N* = 100 held-out times (3100 spliced steps, above DENSE_N_MAX), M = 8,
+    q(u) at log-parameters p0 through the kernel path's plain versions
+    (float32, as the benchmark's configuration), and B = 3 draws around p0."""
+    from gpar_at_scale_torch.ssm.markov import lgssm_of
+    from gpar_at_scale_torch.utils.params import unpack_gpar
+
+    f32 = torch.float32
+    g = torch.Generator().manual_seed(11)
+    t = torch.sort(torch.rand(3000, generator=g, dtype=F64) * 3.0).values
+    t_star = torch.rand(100, generator=g, dtype=F64) * 3.0
+    cols = lambda tv: torch.stack([torch.sin(7.0 * tv), torch.cos(2.3 * tv)], 1)  # noqa: E731
+    X, X_star = cols(t), cols(t_star)
+    y = torch.sin(5.0 * t) + 0.5 * X[:, 0] + 0.2 * torch.randn(3000, generator=g, dtype=F64)
+    t, t_star, X, X_star, y = (a.to(f32) for a in (t, t_star, X, X_star, y))
+    Z = X[torch.linspace(0, 2999, 8, dtype=F64).to(torch.int64)]
+
+    def kernels(p):
+        tl, ts, ol, osig, ns = unpack_gpar(p)
+        return (tk.Matern52(lengthscale=tl, variance=ts**2),
+                tk.Matern52(lengthscale=ol, variance=osig**2), ns**2)
+
+    p0 = torch.tensor([-1.0, 0.0, 0.3, -0.2, -1.5])
+    time_k, out_k, nv = kernels(p0)
+    qu = tdtc.compute_q_u(out_k, lgssm_of(time_k, t, nv, f32), X, Z, y, uu_ridge=nv,
+                          filter_fn="pallas")
+    P = p0[None] + 0.05 * torch.randn(3, 5, generator=g)
+    return dict(t=t, t_star=t_star, X=X, X_star=X_star, y=y, Z=Z, p0=p0, P=P, qu=qu,
+                kernels=kernels)
+
+
+def _scan_request(case, P, dtype):
+    time_k, out_k, nv = case["kernels"](P.T.to(dtype))
+    return tdtc.predict_scaled_batch(out_k, time_k, case["qu"], case["X"], case["t"], case["y"],
+                                     case["t_star"], case["X_star"], nv, dtype=dtype)
+
+
+def test_batched_scan_branch_matches_sequential(scan_batch_case):
+    """Above DENSE_N_MAX, predict_scaled_batch of B = 3 parameter sets
+    against 3 calls of predict_scaled on the same q(u), row by row: in
+    float64 (the tensor-code blocked smoother over the 3 series laid end to
+    end) within 1e-8 of each row's largest magnitude; in float32 (K1-K4b,
+    here their plain versions) within 1e-4 of the float64 predictive's sd."""
+    c = scan_batch_case
+    got64, got32 = _scan_request(c, c["P"], F64), _scan_request(c, c["P"], torch.float32)
+    assert got64.mean.shape == got32.var.shape == (3, 100)
+    for i in range(3):
+        time_k, out_k, nv = c["kernels"](c["P"][i].double())
+        want = tdtc.predict_scaled(out_k, time_k, c["qu"], c["X"], c["t"], c["y"], c["t_star"],
+                                   c["X_star"], nv, dtype=F64)
+        _near(got64.mean[i], _np(want.mean), 1e-8)
+        _near(got64.var[i], _np(want.var), 1e-8)
+        sd = want.var.sqrt()
+        assert float(((got32.mean[i].double() - want.mean) / sd).abs().max()) < 1e-4
+        assert float(((got32.var[i].double() - want.var) / want.var).abs().max()) < 1e-4
+
+
+def test_batched_scan_branch_matches_the_plain_reference(scan_batch_case):
+    """portbench/reference/gpar_dtc_m32_serve.py (float64, the held-out
+    steps unobserved instead of spliced at 1e10): handed the program's q(u),
+    its predictive of the 3 draws equals the float64 batch within 1e-8 of
+    its largest magnitudes; with its own q(u) at p0 the float32 batch is
+    within the serving cell's kind of limits (1e-4 sd, 1e-3 of the
+    variances, q(u) within 1e-3)."""
+    from portbench import cells, compare
+
+    c = scan_batch_case
+    ref = cells.load_module(REPO / "portbench/reference/gpar_dtc_m32_serve.py")
+    inp = ref.Inputs(c["t"], c["X"], c["y"], ref.pseudo_inputs(c["X"], 8), c["t_star"], c["X_star"])
+    assert torch.equal(inp.Z, c["Z"])
+    qu = c["qu"]
+    w = torch.linalg.solve_triangular(qu.L_uu.T, qu.m_eps[:, None], upper=True)[:, 0]
+    rm, rv = ref.predict(c["P"], ref.QU(w, qu.L_uu @ qu.L_D, None, None), inp)
+    got = _scan_request(c, c["P"], F64)
+    _near(got.mean, _np(rm), 1e-8)
+    _near(got.var, _np(rv), 1e-8)
+    rq = ref.q_u(c["p0"], inp)
+    assert compare.qu_gap(*compare.u_posterior(qu.m_eps, qu.L_D, qu.L_uu), rq.u_mean, rq.u_var) < 1e-3
+    rm, rv = ref.predict(c["P"], rq, inp)
+    got = _scan_request(c, c["P"], torch.float32)
+    numbers = compare.serve_numbers(got.mean, got.var, rm, rv)
+    assert numbers["mean_rms_gap"] < 1e-4 and numbers["var_gap"] < 1e-3, numbers
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_series_laid_end_to_end_smooth_as_each_alone(dtype):
+    """ops/smoother.py::smooth_columns over ssm/markov.py::lgssm_batch_of of
+    3 time GPs (one grid, per-series noise, 3 columns) equals
+    smooth_columns of each series' own lgssm_of: float32 through K1-K4b's
+    plain versions within 1e-5, float64 through the blocked smoother
+    within 1e-10, of the largest magnitudes; the batched discretization is
+    each series' lgssm_of within 1e-12."""
+    from gpar_at_scale_torch.ops.smoother import smooth_columns
+
+    g = torch.Generator().manual_seed(5)
+    t = torch.sort(torch.rand(700, generator=g, dtype=F64) * 7.0).values
+    ell, var = torch.tensor([0.3, 0.8, 1.5], dtype=F64), torch.tensor([1.0, 0.5, 2.0], dtype=F64)
+    noise = torch.tensor([0.05, 0.1, 0.2], dtype=F64)[:, None].expand(3, 700).clone()
+    noise[:, ::7] = 1e10  # held-out steps
+    U = torch.randn(3, 700, 3, generator=g, dtype=F64).to(dtype)
+    lg = tmarkov.lgssm_batch_of(tk.Matern52(lengthscale=ell, variance=var), t, noise, dtype)
+    mean, var_b = smooth_columns(lg, U.reshape(2100, 3))
+    tol = 1e-5 if dtype == torch.float32 else 1e-10
+    for i in range(3):
+        one = tmarkov.lgssm_of(tk.Matern52(lengthscale=ell[i], variance=var[i]), t, noise[i], dtype)
+        rows = slice(700 * i, 700 * (i + 1))
+        for a, b in ((lg.A, one.A), (lg.Q, one.Q), (lg.R, one.R)):
+            _near(a[rows], _np(b), 1e-12 if dtype == F64 else 1e-7)
+        m1, v1 = smooth_columns(one, U[i].clone())
+        _near(mean[rows], _np(m1), tol)
+        _near(var_b[rows], _np(v1), tol)
+
+
+def test_batched_scan_request_costs_do_not_grow_with_b(scan_batch_case, monkeypatch):
+    """A float32 scan-branch request calls K1, K2, K3, K4a and K4b once each
+    (their wrappers, counted here on their plain versions) and passes the
+    same host-sync sites at B = 1 and at B = 3; past SCAN_BATCH_STEPS the
+    draws run in chunks, whose answers differ by float32's rounding through
+    another time blocking (within 1e-4 of the largest magnitudes)."""
+    from gpar_at_scale_torch.utils import observability as obs
+
+    calls = {}
+
+    def counted(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kw)
+
+        monkeypatch.setattr(module, name, wrapper)
+
+    for module, name in ((tops_kalman, "phase1"), (tops_kalman, "phase3"),
+                         (tops_whiten, "whiten_sweep"), (tops_smoother, "suffix_reduce"),
+                         (tops_smoother, "suffix_replay")):
+        counted(module, name)
+    c = scan_batch_case
+    seen = []
+    for b in (1, 3):
+        calls.clear()
+        before = obs.counts()["host_syncs"]
+        whole = _scan_request(c, c["P"][:b], torch.float32)
+        seen.append((dict(calls), obs.counts()["host_syncs"] - before))
+    assert seen[0] == seen[1]
+    assert seen[0][0] == {"phase1": 1, "phase3": 1, "whiten_sweep": 1, "suffix_reduce": 1,
+                          "suffix_replay": 1}
+    monkeypatch.setattr(tdtc, "SCAN_BATCH_STEPS", 2 * 3100)
+    calls.clear()
+    chunked = _scan_request(c, c["P"], torch.float32)
+    assert calls["phase1"] == 2
+    _near(chunked.mean, _np(whole.mean), 1e-4)
+    _near(chunked.var, _np(whole.var), 1e-4)
+
+
+def test_long_series_predictive_spans(scan_batch_case):
+    """With the spans on, a scan-branch request holds gpar.request and its
+    stages splice, shared_solves, discretize, kernels, shared_solves,
+    smooth and moments; predict_scaled holds gpar.predict with
+    gpar.predict.smooth inside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpar_at_scale_torch.utils import observability as obs
+
+    c = scan_batch_case
+    time_k, out_k, nv = c["kernels"](c["p0"])
+    work = {"gpar.request": lambda: _scan_request(c, c["P"], torch.float32),
+            "gpar.predict": lambda: tdtc.predict_scaled(out_k, time_k, c["qu"], c["X"], c["t"],
+                                                        c["y"], c["t_star"], c["X_star"], nv,
+                                                        dtype=torch.float32)}
+    names = {}
+    for top, fn in work.items():
+        with profile(activities=[ProfilerActivity.CPU]) as prof, obs.spans_on():
+            fn()
+        names[top] = [ev.name for ev in sorted(prof.events(), key=lambda ev: ev.time_range.start)
+                      if ev.name.startswith("gpar.")]
+    assert names["gpar.request"] == ["gpar.request"] + [
+        f"gpar.request.{s}" for s in ("splice", "shared_solves", "discretize", "kernels",
+                                      "shared_solves", "smooth", "moments")]
+    assert names["gpar.predict"] == ["gpar.predict", "gpar.predict.smooth"]
 
 
 def test_mfu_small_rows():
