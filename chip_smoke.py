@@ -11,7 +11,9 @@ Phases, each of which fails the run:
    same time blocking as its plain version), the suffix-scan kernels
    K4a/K4b (at C = 1 and C = M + 1 columns) and the adjoint's elements and
    scores K5a/K5b (B = 1, M + 1, a mixed chunk of 5, M + 1 at 10 N steps,
-   257 at N / 10) against their plain PyTorch
+   257 at N / 10) and the smoothing elements K7 (N + N* spliced steps,
+   M + 1 columns; then alone at the batched request's 64 draws end to end,
+   against its byte bound) against their plain PyTorch
    versions on the card, at the main path's shapes (d = 3, N steps), and
    time both with CUDA events (a kernel slower than its plain version is
    flagged, not failed); the device kernels one K3 sweep runs, with their
@@ -19,7 +21,8 @@ Phases, each of which fails the run:
    steps, column tiles, ragged and padding-only blocks, K1 on y = 0, K2
    without gains or moments, K4b at C = 1, 33, 70, inputs off a 16-byte
    boundary; several right-hand-side tiles, a batch, the large-n branch;
-   K6b/K6c from n = 1 to 512); K6a-c as below;
+   K6b/K6c from n = 1 to 512; K7 at d = 1, 2, 3, C = 1 to 1500, ragged
+   tiles, inputs off a 16-byte boundary); K6a-c as below;
 3. serving -- make the 16-output chain data from the seed
    (``data/chain.py``), condition the chain on fixed log-parameters drawn
    from the seed with ``fit_gpar(..., filter_impl="pallas",
@@ -152,9 +155,9 @@ Phases, each of which fails the run:
    [dist] seq paths come from the port's ``benchmarks/`` modules.
 22. batch-scan (run before phase 12) -- ``predict_scaled_batch`` above
    DENSE_N_MAX: 64 draws around million_dtc's start at N = 1e6, N* = 1e4,
-   M = 32 in one request (the draws' series end to end through K1-K4b
-   once), then one draw; the scan kernels' launches and the host syncs of
-   a request must not depend on B; draws 0, 32 and 63 against float64
+   M = 32 in one request (the draws' series end to end through K1-K3, K7
+   and K4a/K4b once), then one draw; the scan kernels' launches and the
+   host syncs of a request must not depend on B; draws 0, 32 and 63 against float64
    ``predict_scaled`` within million_dtc (c)'s bound; the batch's peak
    device memory.
 
@@ -219,8 +222,14 @@ F32_FLOP_PER_S = 67e12
 # ct_A and ct_R are differences of such sums (R2 A P + Rm against N A P
 # ct_ld, u ctsym u^T against ct_ld D) that cancel to well under their
 # terms' size: it holds the scan kernels' bound.
+# K7 forms each step's E, L and F = E A_{k+1} in registers by FMAs, where
+# the plain version rounds every batched product, and g as m - (E A) m
+# against the plain m - E (A m).  L = P - E Pp E^T and g cancel to rounding
+# at small gaps, but the element after each series' last step is (0, m, P),
+# so their largest magnitudes are P's and m's: O(1e-6) of them, held to
+# 1e-5 (float32 against a float64 loop on a CPU: at most 1.05e-6).
 TOL = {"K1": 1e-4, "K2": 1e-4, "K3": 1e-4, "K4a": 1e-4, "K4b": 1e-4, "K5a": 1e-5, "K5b": 1e-4,
-       "K6a": 1e-4, "K6b": 1e-4, "K6c": 1e-4}
+       "K6a": 1e-4, "K6b": 1e-4, "K6c": 1e-4, "K7": 1e-5}
 # Reference phase: float32 kernels and smoother against float64 sequential
 # filtering at N = 2500, seed 0.  Means are O(1) and differed by at most
 # 5.1e-5 on an H100 (6.1e-5 with the plain versions on a CPU): atol 2e-4.
@@ -321,6 +330,12 @@ def _k5b_flops(d, B):
             + 2 * d * d + 2 * d * d + 6 * d * d + 4)
 
 
+def _k7_flops(d, C):
+    # A P A^T + Q, P A^T, E, E Pp, L, F = E A (2 d^3 each, d^2 adds); the
+    # adjugate and its d^2 divisions (41 at d = 3); g = m - F m per column
+    return 14 * d**3 + 2 * d * d + d**3 + d * d + 5 + (2 * d + 1) * d * C
+
+
 def _grad_gap(got, want, n):
     """(ok, text): each component of the gradient within the bound of the
     gradient phases at N = n, and the relative gap of every component."""
@@ -387,8 +402,8 @@ def _record(records, failures, kernel, key, got, want, names, ms, plain_ms, nbyt
 def scan_inputs(t, Y, params, M):
     """The scan kernels' inputs on the first conditional of the chain, at
     the main path's shapes: a dict of the float32 (A, Q, R, y) of its
-    LGSSM, the LGSSM, the M + 1 columns [y | K_fu] it whitens, d, n and the
-    time blocking nb x T."""
+    LGSSM, the LGSSM, the M + 1 columns [y | K_fu] it whitens, d, n, the
+    time blocking nb x T, and the time kernel and noise variance."""
     import torch
 
     from gpar_at_scale_torch.kernels import time_kernel_only
@@ -407,7 +422,8 @@ def scan_inputs(t, Y, params, M):
     A, Q, R, y = ok._f32_inputs(lgssm, Y[:, 1])
     n, d = A.shape[0], A.shape[-1]
     nb = ok.num_blocks_for(n)
-    return dict(A=A, Q=Q, R=R, y=y, lgssm=lgssm, batch=batch, n=n, d=d, nb=nb, T=-(-n // nb))
+    return dict(A=A, Q=Q, R=R, y=y, lgssm=lgssm, batch=batch, n=n, d=d, nb=nb, T=-(-n // nb),
+                time_k=time_k, noise_var=tns**2)
 
 
 def adjoint_elements(A, Q, R, batch):
@@ -516,6 +532,74 @@ def check_kernels(t, Y, params, M, failures):
     return records
 
 
+# K7's request shapes: the batched long-series request's draws, each
+# series N + N* spliced steps, laid end to end ([batch-scan], portbench's
+# dtc_m32-serve-b64-n1m).
+K7_DRAWS = 64
+
+
+def check_column_elements(t, Y, t_star, params, records, failures):
+    """K7 against its plain version at one draw's shapes in the batched
+    long-series request: the first conditional's time GP over its N steps
+    with the N* held-out times spliced in (noise 1e10), N + N* = 1.01e6
+    steps, its y = 0 filter's P and K3's filtered means of the M + 1
+    columns [y | K_fu] (zero at the held-out rows); timed beside the plain
+    version and, as ``library``, the g update alone as batched cuBLAS
+    products (torch.bmm, torch.baddbmm).  Then K7 alone at the whole
+    request's shapes, K7_DRAWS such series end to end (6.46e7 steps),
+    against its byte bound."""
+    import torch
+
+    from gpar_at_scale_torch.gp.dtc import splice
+    from gpar_at_scale_torch.ops import kalman as ok
+    from gpar_at_scale_torch.ops import smoother as osm
+    from gpar_at_scale_torch.ops import whiten as ow
+    from gpar_at_scale_torch.ssm.markov import LGSSM, lgssm_of
+
+    f32 = torch.float32
+    inp = scan_inputs(t, Y, params, M)
+    d, batch = inp["d"], inp["batch"]
+    order, _, t_s, noise_s = splice(t, t_star, inp["noise_var"], f32)
+    lg = lgssm_of(inp["time_k"], t_s, noise_s, f32)
+    cols = torch.cat([batch, batch.new_zeros(t_star.shape[0], batch.shape[1])])[order]
+    n, C = cols.shape
+    A = lg.A
+    _, _, _, S, K, _, P = ok.decorrelate_blocked(lg, cols.new_zeros(n), return_gains=True,
+                                                 return_moments=True)
+    m = ow.whiten_sweep(ow.gain_rows(A, S, K), cols.contiguous(), d, want_means=True)[2]
+    del cols, S, K
+    g_k, g_p, work = m.clone(), m.clone(), m.clone()
+    E_k, L_k = osm.column_elements(lg, g_k, P)
+    E_p, L_p = osm.column_elements_plain(lg, g_p, P)
+    _sync(t.device)
+    A_next = torch.cat([A[1:], torch.zeros_like(A[:1])])
+    record = functools.partial(_record, records, failures)
+    record(
+        osm.K7, "K7", (E_k, L_k, g_k), (E_p, L_p, g_p), "E L g",
+        _time_ms(lambda: osm.column_elements(lg, work, P), reps=20),
+        _time_ms(lambda: osm.column_elements_plain(lg, work, P), reps=3),
+        _nbytes(A, lg.Q, P, m, E_k, L_k, g_k), n * _k7_flops(d, C), label=f"N={n} C={C}",
+        library_ms=_time_ms(lambda: torch.baddbmm(m, E_p, torch.bmm(A_next, m), alpha=-1.0),
+                            reps=20),
+    )
+    del g_k, g_p, work, E_k, L_k, E_p, L_p, A_next
+    # the whole request: K7_DRAWS copies of the series end to end (A = 0 at
+    # each one's first step, as lgssm_batch_of lays the draws)
+    big = LGSSM(A=A.repeat(K7_DRAWS, 1, 1), Q=lg.Q.repeat(K7_DRAWS, 1, 1), H=lg.H,
+                R=lg.R.repeat(K7_DRAWS), e1=lg.e1)
+    P_big, m_big = P.repeat(K7_DRAWS, 1, 1), m.repeat(K7_DRAWS, 1, 1)
+    del A, P, m
+    nb = K7_DRAWS * n
+    ms = _time_ms(lambda: osm.column_elements(big, m_big, P_big), reps=5)
+    nbytes = 4 * nb * (5 * d * d + 2 * d * C)  # A, Q, P, m in; E, L, g out
+    bound, by = _bound_ms(nbytes, nb * _k7_flops(d, C))
+    records["K7"].update(request_n=nb, request_ms=ms, request_bound_ms=bound)
+    _log(f"[kernels] K7 at the request's shapes ({K7_DRAWS} draws end to end, n={nb}, C={C}): "
+         f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of the bound")
+    del big, P_big, m_big
+    torch.cuda.empty_cache()
+
+
 def _adjoint_case(A, aux, ct_G, ct_ld, scan_W, record, key, label, H):
     """K5a and K5b on one set of inputs against their plain versions (the
     tensor code with H = e1): the elements, the suffix scan of the plain
@@ -598,7 +682,7 @@ def check_adjoint_kernels(A, Q, R, batch, records, failures):
 
 
 def check_kernel_edges(failures):
-    """K1, K2, K3, K4b and K6a-c against their plain versions at shapes the main
+    """K1, K2, K3, K4b, K6a-c and K7 against their plain versions at shapes the main
     paths do not reach: K1, K2 and K4b at d = 1, 2, 3 with a ragged last block,
     blocks of padding only (n = 1000 in 70 blocks of 15 steps, n = 100 in 16
     of 7), blocks shorter than a stage's chunk or not a multiple of it,
@@ -608,7 +692,8 @@ def check_kernel_edges(failures):
     tiles, a ragged last block and a block of padding only; K6a with no, one
     and several right-hand-side tiles, a batch, and n past the shared-memory
     bound (its L2-resident branch); K6b and K6c from n = 1 to 512 with one,
-    several and ragged column tiles and a batch."""
+    several and ragged column tiles and a batch; K7 at d = 1, 2, 3 from one
+    step to ragged tiles, C = 1 to 1500, inputs off a 16-byte boundary."""
     import numpy as np
     import torch
 
@@ -691,6 +776,28 @@ def check_kernel_edges(failures):
         worst[f"K5b d={d} n={n} B={B}"] = _rel_err(
             og.adjoint_scores(A, aux, r, Nm, ct_G, 0.3),
             whiten_bwd_scores(A, H, aux, r, Nm, ct_G, 0.3), "ct_A ct_Q ct_R ct_U".split())[1]
+    # K7: d = 1, 2, 3; one step, ragged last tiles (32 steps at C <= 42 where
+    # d = 3, 4 at C = 257), inputs off a 16-byte boundary (m copied back)
+    from gpar_at_scale_torch.ssm.markov import LGSSM
+
+    for d, n, C, off in ((1, 1, 1, False), (2, 33, 5, True), (3, 1000, 33, False),
+                         (3, 333, 257, True), (1, 1001, 1500, False), (2, 4097, 70, False)):
+        t_ = torch.as_tensor(np.cumsum(rng.uniform(0.1, 1.0, n)) / 50.0, device=_DEV)
+        kern = family[d](lengthscale=torch.tensor(0.7, device=_DEV),
+                         variance=torch.tensor(1.3, device=_DEV))
+        lg = lgssm_of(kern, t_, 0.1, f32)
+        X = rng.normal(size=(n, d, d))
+        P = torch.as_tensor(X @ np.swapaxes(X, 1, 2) / d + 0.1 * np.eye(d)).to(_DEV, f32)
+        m = torch.as_tensor(rng.normal(size=(n, d, C))).to(_DEV, f32)
+        if off:
+            lg = LGSSM(A=off16(lg.A), Q=off16(lg.Q), H=lg.H, R=lg.R, e1=lg.e1)
+            P, m = off16(P), off16(m)
+        g_k, g_p = m.clone(), m.clone()
+        if off:
+            g_k = off16(g_k)
+        got = osm.column_elements(lg, g_k, P)
+        worst[f"K7 d={d} n={n} C={C}"] = _rel_err(
+            got + (g_k,), osm.column_elements_plain(lg, g_p, P) + (g_p,), "E L g".split())[1]
     for d, n, B, nb, T in ((1, 9, 1, 4, 3), (2, 333, 70, 20, 17), (3, 333, 33, 7, 48),
                            (3, 1000, 5, 62, 17)):
         S = rng.uniform(0.5, 2.0, n)
@@ -735,7 +842,8 @@ def check_kernel_edges(failures):
 # Device-kernel names of the port's CUDA kernels, as the profiler reports them.
 _PORT_KERNELS = ("phase1_kernel", "phase3_kernel", "sweep_kernel", "prefix_kernel",
                  "ll_sum_kernel", "suffix_reduce_kernel", "suffix_replay_kernel",
-                 "chol_solve_kernel", "chol_solve_l2_kernel", "tri_kernel")
+                 "chol_solve_kernel", "chol_solve_l2_kernel", "tri_kernel",
+                 "smoothing_elements_kernel")
 
 
 def _device_kernels(fn):
@@ -2566,7 +2674,7 @@ MIXED_START = (0.5, 1.0, 1.0, 0.7, 0.2)
 # N* = 10^4, M = 32, float32 through the scan branch; 3 of the draws
 # against float64 predict_scaled within million_dtc (c)'s sd bound.
 BSCAN_N, BSCAN_N_STAR, BSCAN_M, BSCAN_B, BSCAN_DRAW_SD = 1_000_000, 10_000, 32, 64, 1e-3
-BSCAN_SCAN_KERNELS = ("K1", "K2", "K3", "K4a", "K4b")
+BSCAN_SCAN_KERNELS = ("K1", "K2", "K3", "K7", "K4a", "K4b")
 
 
 def _all_counts():
@@ -2666,9 +2774,9 @@ def ffbs_phase(seed, failures):
 
 def batch_scan_phase(seed, failures):
     """[batch-scan] ``predict_scaled_batch`` above DENSE_N_MAX on the card:
-    B = 64 draws at N = 10^6, N* = 10^4 (6.5e7 spliced steps through K1-K4b
-    once), then B = 1; the scan kernels' launches and the host syncs of a
-    request must not depend on B; 3 of the 64 answers against float64
+    B = 64 draws at N = 10^6, N* = 10^4 (6.5e7 spliced steps through K1-K3,
+    K7 and K4a/K4b once), then B = 1; the scan kernels' launches and the
+    host syncs of a request must not depend on B; 3 of the 64 answers against float64
     ``predict_scaled`` (the tensor-code blocked smoother) within
     ``DTC_PRED_SD`` sd; peak device memory of the batch.  Returns the
     launches of the batched request."""
@@ -3837,6 +3945,7 @@ def main(argv=None):
     trace_check(failures)
     # 2. kernels against their plain versions
     records = check_kernels(t, Y, params, M, failures)
+    check_column_elements(t, Y, t_star, params, records, failures)
     check_kernel_edges(failures)
     records.update(check_dense_kernels(generate_synthetic_eeg(seed=0), failures))
 
@@ -3927,6 +4036,7 @@ def main(argv=None):
                   ("scripts", script_launches))
     from gpar_at_scale_torch.ops import KERNELS
 
+    records["K7"]["launches_by_path"] = {}  # the batched long-series request, below
     for k in KERNELS:
         records[k.name.split()[0]]["launches_by_path"].update(
             {path: c[k.name] for path, c in new_paths})
@@ -3936,12 +4046,15 @@ def main(argv=None):
          + "; ".join(f"{path} {c}" for path, c in new_paths))
     # the batched long-series predictive, on an emptied cache: about 60 GiB
     torch.cuda.empty_cache()
-    _log(f"[kernels] launches of the batched long-series request: {batch_scan_phase(args.seed, failures)}")
+    bscan = batch_scan_phase(args.seed, failures)
+    _log(f"[kernels] launches of the batched long-series request: {bscan}")
+    k7 = bscan["K7 smoothing_elements"]
+    records["K7"]["launches"] = records["K7"]["launches_by_path"]["batch-scan"] = k7
     # 12. the associative-scan engine, last: its autograd takes the most memory
     torch.cuda.empty_cache()
     assoc_phase(t, Y, params, failures)
 
-    keys = ("K1", "K2", "K3", "K4a", "K4b", "K5a", "K5b", "K6a", "K6b", "K6c")
+    keys = ("K1", "K2", "K3", "K4a", "K4b", "K5a", "K5b", "K6a", "K6b", "K6c", "K7")
     print(json.dumps({"kernels": [records[k] for k in keys]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -25,7 +25,7 @@ inducing inputs every N/M-th input (:96); start pack_gpar(0.5, 1, 1, 0.7,
       (M + 1)-column smoothing stack [y - f_x | G] of the script's
       ``prepare`` (:575-596) smoothed on the kernels by
       ``ops/smoother.py::smooth_columns``: the gain pass on K1/K2, K3 with
-      its means, the shared smoothing elements, one suffix scan over the
+      its means, the smoothing elements on K7, one suffix scan over the
       M + 1 columns on K4a/K4b.
 
 ``--check``: the staged gradient (float32, the kernels) against autograd of

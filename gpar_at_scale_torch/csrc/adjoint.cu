@@ -67,23 +67,8 @@ constexpr int kScoreSteps = 32;  // K5b: most steps per CUDA block
 constexpr int kSmemTarget = 64 * 1024;  // K5b: at least three blocks an SM
 constexpr int kSmemMax = 232448;        // a block's most shared memory on Hopper
 
-// Stage the range [first, first + count) of src (total floats) into its
-// slot dst (staging.cuh): all threads, 16-byte cp.async units.
-__device__ __forceinline__ void stage_range(float* dst, const float* __restrict__ src,
-                                            long long first, int count, long long total,
-                                            int tid, int nthr) {
-  if (count <= 0) return;
-  const int units = (gpar::lead(first) + count + 3) / 4;
-  for (int u = tid; u < units; u += nthr) gpar::unit_in(dst, src, first, count, total, u);
-}
-
-// Store the range [first, first + count) of dst from its slot src.
-__device__ __forceinline__ void store_range(float* __restrict__ dst, const float* src,
-                                            long long first, int count, int tid, int nthr) {
-  if (count <= 0) return;
-  const int units = (gpar::lead(first) + count + 3) / 4;
-  for (int u = tid; u < units; u += nthr) gpar::unit_out(dst, src, first, count, u);
-}
+using gpar::stage_range;
+using gpar::store_range;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)

@@ -1,6 +1,7 @@
 // Staging of contiguous float ranges between device memory and shared
 // memory, for the scan kernels K1 and K2 (kalman_scan.cu) and K4b
-// (suffix_scan.cu).
+// (suffix_scan.cu), the adjoint's kernels K5a/K5b (adjoint.cu) and the
+// smoothing elements K7 (smoothing.cu).
 //
 // A range [first, first + count) of a float array is staged into a slot of
 // shared memory from the 16-byte boundary at or below `first`: the range
@@ -113,6 +114,24 @@ __device__ __forceinline__ void ranges_out(float* __restrict__ dst, const float*
     const int rows = chunk(j, k0);
     if (rows > 0) unit_out(dst, slots + j * SLOT, k0 * W, rows * W, u);
   }
+}
+
+// Stage the range [first, first + count) of src (total floats) into its
+// slot dst (above): all threads, 16-byte cp.async units.
+__device__ __forceinline__ void stage_range(float* dst, const float* __restrict__ src,
+                                            long long first, int count, long long total,
+                                            int tid, int nthr) {
+  if (count <= 0) return;
+  const int units = (lead(first) + count + 3) / 4;
+  for (int u = tid; u < units; u += nthr) unit_in(dst, src, first, count, total, u);
+}
+
+// Store the range [first, first + count) of dst from its slot src.
+__device__ __forceinline__ void store_range(float* __restrict__ dst, const float* src,
+                                            long long first, int count, int tid, int nthr) {
+  if (count <= 0) return;
+  const int units = (lead(first) + count + 3) / 4;
+  for (int u = tid; u < units; u += nthr) unit_out(dst, src, first, count, u);
 }
 
 // True when every non-NULL pointer is 16-byte aligned.

@@ -513,7 +513,7 @@ def predict_scaled_batch(
     discretized at once (``ssm/markov.py::lgssm_batch_of``) and laid end to
     end as one series of B N_all steps, whose M + 1 columns [y - fx_bar | G]
     go through the kernels once (``ops/smoother.py::smooth_columns``: K1/K2,
-    K3, K4a/K4b), so launches and host syncs do not grow with B; only the
+    K3, K7, K4a/K4b), so launches and host syncs do not grow with B; only the
     held-out rows are kept.  Batches of more than ``SCAN_BATCH_STEPS``
     steps run in chunks of draws.  float32 requests take the kernels,
     float64 ones the tensor-code blocked smoother.

@@ -14,10 +14,10 @@ from gpar_at_scale_torch.ops.grad import (
     logpdf_markov_pallas,
 )
 from gpar_at_scale_torch.ops.kalman import K1, K2, decorrelate_blocked, pallas_supported
-from gpar_at_scale_torch.ops.smoother import K4A, K4B, pallas_smooth, suffix_scan
+from gpar_at_scale_torch.ops.smoother import K4A, K4B, K7, pallas_smooth, suffix_scan
 from gpar_at_scale_torch.ops.whiten import K3, whiten_columns, whiten_gram
 
-KERNELS = (K1, K2, K3, K4A, K4B, K5A, K5B, K6A, K6B, K6C)
+KERNELS = (K1, K2, K3, K4A, K4B, K5A, K5B, K6A, K6B, K6C, K7)
 
 
 def launch_counts():
@@ -26,7 +26,7 @@ def launch_counts():
 
 
 __all__ = [
-    "K1", "K2", "K3", "K4A", "K4B", "K5A", "K5B", "K6A", "K6B", "K6C", "KERNELS", "launch_counts",
+    "K1", "K2", "K3", "K4A", "K4B", "K5A", "K5B", "K6A", "K6B", "K6C", "K7", "KERNELS", "launch_counts",
     "LgssmLoglik", "MixedWhitenGram", "WhitenGram", "chol_solve", "decorrelate_blocked", "logpdf_markov_pallas",
     "pallas_smooth", "pallas_supported", "suffix_scan", "tri_u", "tri_ut", "whiten_columns",
     "whiten_gram",

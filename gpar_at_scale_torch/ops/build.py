@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("kalman_scan", "whiten", "suffix_scan", "adjoint", "dense")
+SOURCES = ("kalman_scan", "whiten", "suffix_scan", "adjoint", "dense", "smoothing")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -43,6 +43,7 @@ _ARGTYPES = {
     "dense_chol_solve": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "dense_tri_ut": [_P, _P, _I, _I, _I, _P, _P],
     "dense_tri_u": [_P, _P, _I, _I, _I, _P, _P],
+    "smoothing_elements": [_I, _P, _P, _P, _P, _LL, _I, _P, _P, _P],
 }
 
 

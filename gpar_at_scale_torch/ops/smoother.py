@@ -1,4 +1,5 @@
-"""Blocked suffix scan on the card: kernels K4a and K4b, and the smoother.
+"""Blocked suffix scan on the card: kernels K4a and K4b, and the smoother,
+with its elements over many columns on kernel K7.
 
 Counterpart of ``gpar_at_scale_tpu/ops/pallas_smoother.py``.  The scan
 takes per-step affine + congruence elements (E_k (d, d), g_k (d, C),
@@ -34,6 +35,11 @@ the same recursions as tensor code vectorised over blocks and columns, for
 CPU tensors and as the kernels' check on the card.  The kernels stop each
 block at step n; the plain versions pad with the identity element
 (I, 0, 0), which leaves (v, M) unchanged -- the same result.
+
+K7 (``csrc/smoothing.cu``, wrapper ``column_elements``, plain version
+``column_elements_plain``) forms the scan's input for the RTS smoother of
+many columns at once (``smooth_columns``): the shared E, L and every
+column's g = m - E A' m in one pass, g over the filtered means in place.
 """
 
 from __future__ import annotations
@@ -63,6 +69,12 @@ K4B = CudaKernel(
     "K4b suffix_replay", "suffix_scan", "suffix_replay",
     "gpar_at_scale_tpu/ops/pallas_smoother.py:187",
 )
+K7 = CudaKernel(
+    "K7 smoothing_elements", "smoothing", "smoothing_elements",
+    "no pallas_call: gpar_at_scale_tpu/ssm/blocked.py's smoothing elements, fused by XLA",
+)
+# K7 holds a tile of at least 4 steps of m (d C floats each) in shared memory.
+SMOOTHING_MAX_COLUMNS = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -236,9 +248,40 @@ def pallas_smooth(lgssm: LGSSM, y, return_state: bool = False, boundary=None):
     return f_mean, f_var, ll, ms, Ps, E
 
 
-# Steps per slice of the smoother's per-column elements g = m - E A' m, so
-# that the product's temporary stays a slice's size at B N ~ 6.5e7 steps
-G_SLICE_STEPS = 1 << 22
+def column_elements_plain(lgssm: LGSSM, m, P):
+    """K7's plain version: ``ssm.blocked.smoothing_elements``' E and L, and
+    every column's g = m - E (A_{k+1} m), written over m."""
+    E, _, L = smoothing_elements(lgssm, m[:, :, 0], P)
+    A = lgssm.A.to(m.dtype)
+    m -= E @ (torch.cat([A[1:], torch.zeros_like(A[:1])]) @ m)
+    return E, L
+
+
+def column_elements(lgssm: LGSSM, m, P):
+    """K7: the RTS smoother's elements over the C columns of the filtered
+    means m (n, d, C), from m and the filtered covariances P (n, d, d):
+    E, L (n, d, d) as ``ssm.blocked.smoothing_elements`` forms them, and
+    g = m - E A_{k+1} m written over m (A_{k+1} = 0 at the last step).
+    float32, d <= 3, contiguous.  Launches on CUDA tensors, runs the plain
+    version on CPU tensors."""
+    A, Q = (x.to(torch.float32).contiguous() for x in (lgssm.A, lgssm.Q))
+    require_f32("column_elements", A, Q, m, P)
+    n, d = A.shape[0], A.shape[-1]
+    if not 1 <= d <= 3 or Q.shape != (n, d, d) or P.shape != (n, d, d):
+        raise ValueError(f"column_elements: A, Q, P must be (n, d, d) with d <= 3, got "
+                         f"{tuple(A.shape)}, {tuple(Q.shape)}, {tuple(P.shape)}")
+    C = m.shape[2] if m.ndim == 3 else 0
+    if m.shape != (n, d, C) or not 1 <= C <= SMOOTHING_MAX_COLUMNS:
+        raise ValueError(f"column_elements: m must be ({n}, {d}, C) with 1 <= C <= "
+                         f"{SMOOTHING_MAX_COLUMNS}, got {tuple(m.shape)}")
+    if not m.is_cuda:
+        return column_elements_plain(lgssm, m, P)
+    A, Q, P, g = (aligned16(x) for x in (A, Q, P, m))
+    E, L = (torch.empty((n, d, d), dtype=torch.float32, device=m.device) for _ in range(2))
+    K7(d, ptr(A), ptr(Q), ptr(P), ptr(g), n, C, ptr(E), ptr(L))
+    if g is not m:
+        m.copy_(g)
+    return E, L
 
 
 def smooth_columns(lgssm: LGSSM, cols):
@@ -246,8 +289,8 @@ def smooth_columns(lgssm: LGSSM, cols):
     variances (N,)) of the first state component.
 
     float32 on the kernels: the y = 0 gain pass (K1/K2) and K3 with its
-    filtered means, the smoothing elements (E, L shared by the columns, g
-    per column), one C-column suffix scan (K4a/K4b); one launch of each
+    filtered means, the smoothing elements (K7: E, L shared by the columns,
+    g per column), one C-column suffix scan (K4a/K4b); one launch of each
     whatever N and C.  The caller should hold no other reference to
     ``cols``: it is dropped once K3 has read it.  Columns in another
     precision, or SDEs the kernels cannot take, run the tensor-code
@@ -270,14 +313,9 @@ def smooth_columns(lgssm: LGSSM, cols):
         lgssm, cols.new_zeros(n), return_gains=True, return_moments=True)
     _, alpha, m = whiten_sweep(gain_rows(A, S, K), cols.contiguous(), d, want_means=True)
     del cols, alpha, S, K
-    E, _, L = smoothing_elements(lgssm, m[:, :, 0], P)
+    E, L = column_elements(lgssm, m, P)  # g over m
     del P
-    A_next = torch.cat([A[1:], torch.zeros_like(A[:1])])
-    for lo in range(0, n, G_SLICE_STEPS):  # g = m - E A_next m, in place
-        sl = slice(lo, min(n, lo + G_SLICE_STEPS))
-        m[sl] -= E[sl] @ (A_next[sl] @ m[sl])
-    del A_next
-    ms, Ps = suffix_scan(E.contiguous(), m, L.contiguous())
+    ms, Ps = suffix_scan(E, m, L)
     return ms[:, 0, :], torch.clamp(Ps[:, 0, 0], min=0.0)
 
 

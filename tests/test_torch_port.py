@@ -1062,15 +1062,28 @@ def test_adjoint_wrappers_raise_on_what_the_kernels_do_not_take(fault, rng):
 
 
 def test_launch_counts_list_the_adjoint_kernels():
-    """``launch_counts()`` reports K5a and K5b beside K1-K4b and K6a-c, with
-    the source each is built from."""
-    from gpar_at_scale_torch.ops import K5A, K5B, launch_counts
+    """``launch_counts()`` reports K5a and K5b beside K1-K4b, K6a-c and K7,
+    with the source each is built from."""
+    from gpar_at_scale_torch.ops import K5A, K5B, K7, launch_counts
     from gpar_at_scale_torch.ops.build import SOURCES
 
     names = [k.split()[0] for k in launch_counts()]
-    assert names == ["K1", "K2", "K3", "K4a", "K4b", "K5a", "K5b", "K6a", "K6b", "K6c"]
+    assert names == ["K1", "K2", "K3", "K4a", "K4b", "K5a", "K5b", "K6a", "K6b", "K6c", "K7"]
     assert K5A.source == K5B.source == "gpar_at_scale_torch/csrc/adjoint.cu"
-    assert "adjoint" in SOURCES
+    assert K7.source == "gpar_at_scale_torch/csrc/smoothing.cu"
+    assert "adjoint" in SOURCES and "smoothing" in SOURCES
+
+
+def _names_clear_of_the_scan_kernels(source):
+    """The ``__global__`` functions of ``csrc/<source>``, after checking
+    that none contains a name fragment of K1-K4b's device kernels."""
+    from portbench.roofline.scan import DEVICE_KERNELS
+
+    src = (Path(tops_grad.__file__).resolve().parent.parent / "csrc" / source).read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
+    frags = [frag for parts in DEVICE_KERNELS.values() for frag, _ in parts]
+    assert not [(n, f) for n in names for f in frags if f in n]
+    return sorted(names)
 
 
 def test_adjoint_kernel_names_stay_clear_of_the_scan_kernels():
@@ -1078,13 +1091,14 @@ def test_adjoint_kernel_names_stay_clear_of_the_scan_kernels():
     (``portbench/roofline/scan.py::DEVICE_KERNELS``), and the benchmark's
     traced run checks their count against K1-K4b's launch counters: no
     ``__global__`` function of ``csrc/adjoint.cu`` may contain one."""
-    from portbench.roofline.scan import DEVICE_KERNELS
+    names = _names_clear_of_the_scan_kernels("adjoint.cu")
+    assert names == ["adjoint_elements_kernel", "adjoint_scores_kernel"]
 
-    src = (Path(tops_grad.__file__).resolve().parent.parent / "csrc" / "adjoint.cu").read_text()
-    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
-    assert sorted(names) == ["adjoint_elements_kernel", "adjoint_scores_kernel"]
-    frags = [frag for parts in DEVICE_KERNELS.values() for frag, _ in parts]
-    assert not [(n, f) for n in names for f in frags if f in n]
+
+def test_smoothing_kernel_name_stays_clear_of_the_scan_kernels():
+    """Nor may K7's (``csrc/smoothing.cu``), or the batched request's
+    ``scan_roofline_pct.serve.n1m`` would count it as a scan kernel."""
+    assert _names_clear_of_the_scan_kernels("smoothing.cu") == ["smoothing_elements_kernel"]
 
 
 @pytest.mark.parametrize("family,rtol", [("Matern12", 1e-4), ("Matern32", 2e-3), ("Matern52", 5e-3)])
@@ -4417,9 +4431,73 @@ def test_series_laid_end_to_end_smooth_as_each_alone(dtype):
         _near(var_b[rows], _np(v1), tol)
 
 
+def _column_elements_case(d, n1, C, device="cpu"):
+    """Three Matern time GPs of state dim d laid end to end by lgssm_batch_of
+    (n1 steps each, float32), their y = 0 filter's covariances P and
+    standard normal means m (3 n1, d, C)."""
+    g = torch.Generator().manual_seed(d)
+    t = torch.sort(torch.rand(n1, generator=g, dtype=F64) * 7.0).values
+    ell, var = torch.tensor([0.3, 0.8, 1.5], dtype=F64), torch.tensor([1.0, 0.5, 2.0], dtype=F64)
+    noise = torch.tensor([0.05, 0.1, 0.2], dtype=F64)[:, None].expand(3, n1).clone()
+    family = (tk.Matern12, tk.Matern32, tk.Matern52)[d - 1]
+    lg = tmarkov.lgssm_batch_of(family(lengthscale=ell.to(device), variance=var.to(device)),
+                                t.to(device), noise.to(device), torch.float32)
+    *_, P = tops_kalman.decorrelate_blocked(lg, torch.zeros(3 * n1, device=device),
+                                           return_moments=True)
+    m = torch.randn(3 * n1, d, C, generator=g).to(device)
+    return lg, P, m
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_column_elements_match_a_float64_loop(d):
+    """ops/smoother.py::column_elements (K7's wrapper) on CPU tensors: E, L
+    and g = m - E A_{k+1} m over C = 5 columns of three series laid end to
+    end (300 steps each), against a float64 loop of the formulas step by
+    step, each within 2e-5 of its largest magnitude (measured at most
+    1.05e-6, at d = 3); the element before each series' first step (A = 0
+    there) and after the last step is (0, m, P) exactly; shapes and types
+    the kernel does not take raise."""
+    lg, P, m = _column_elements_case(d, 300, 5)
+    m0 = m.clone()
+    E, L = tops_smoother.column_elements(lg, m, P)
+    n = m.shape[0]
+    A, Q, Pd, md = (_np(x).astype(np.float64) for x in (lg.A, lg.Q, P, m0))
+    want = np.zeros((n, d, d)), np.zeros((n, d, d)), np.zeros((n, d, 5))
+    for k in range(n):
+        A1 = A[k + 1] if k + 1 < n else np.zeros((d, d))
+        Pp = A1 @ Pd[k] @ A1.T + (Q[k + 1] if k + 1 < n else np.eye(d))
+        Ek = Pd[k] @ A1.T @ np.linalg.inv(Pp)
+        want[0][k], want[1][k], want[2][k] = Ek, Pd[k] - Ek @ Pp @ Ek.T, md[k] - Ek @ A1 @ md[k]
+    for got, w in zip((E, L, m), want):
+        _near(got, w, 2e-5)
+    for k in (299, 599, n - 1):
+        assert not E[k].any() and torch.equal(L[k], P[k]) and torch.equal(m[k], m0[k])
+    for bad in (lambda: tops_smoother.column_elements(lg, m.double(), P),
+                lambda: tops_smoother.column_elements(lg, m[:, :, :0].contiguous(), P),
+                lambda: tops_smoother.column_elements(lg, m[1:].contiguous(), P)):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def test_column_elements_kernel_matches_its_twin_on_the_card():
+    """K7 against its plain version on the card: three series of 33,400
+    steps end to end (n ~ 1e5), C = 33, E, L and g within 1e-5 of their
+    largest magnitudes; one launch.  Skips without a CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("K7 is a CUDA kernel: needs a CUDA device")
+    lg, P, m = _column_elements_case(3, 33_400, 33, device="cuda")
+    g_k, g_p = m.clone(), m.clone()
+    before = tops_smoother.K7.launches
+    got = tops_smoother.column_elements(lg, g_k, P)
+    assert tops_smoother.K7.launches == before + 1
+    want = tops_smoother.column_elements_plain(lg, g_p, P)
+    for a, b in zip(got + (g_k,), want + (g_p,)):
+        _near(a, _np(b), 1e-5)
+
+
 def test_batched_scan_request_costs_do_not_grow_with_b(scan_batch_case, monkeypatch):
-    """A float32 scan-branch request calls K1, K2, K3, K4a and K4b once each
-    (their wrappers, counted here on their plain versions) and passes the
+    """A float32 scan-branch request calls K1, K2, K3, K7, K4a and K4b once
+    each (their wrappers, counted here on their plain versions) and passes the
     same host-sync sites at B = 1 and at B = 3; past SCAN_BATCH_STEPS the
     draws run in chunks, whose answers differ by float32's rounding through
     another time blocking (within 1e-4 of the largest magnitudes)."""
@@ -4437,8 +4515,8 @@ def test_batched_scan_request_costs_do_not_grow_with_b(scan_batch_case, monkeypa
         monkeypatch.setattr(module, name, wrapper)
 
     for module, name in ((tops_kalman, "phase1"), (tops_kalman, "phase3"),
-                         (tops_whiten, "whiten_sweep"), (tops_smoother, "suffix_reduce"),
-                         (tops_smoother, "suffix_replay")):
+                         (tops_whiten, "whiten_sweep"), (tops_smoother, "column_elements"),
+                         (tops_smoother, "suffix_reduce"), (tops_smoother, "suffix_replay")):
         counted(module, name)
     c = scan_batch_case
     seen = []
@@ -4448,8 +4526,8 @@ def test_batched_scan_request_costs_do_not_grow_with_b(scan_batch_case, monkeypa
         whole = _scan_request(c, c["P"][:b], torch.float32)
         seen.append((dict(calls), obs.counts()["host_syncs"] - before))
     assert seen[0] == seen[1]
-    assert seen[0][0] == {"phase1": 1, "phase3": 1, "whiten_sweep": 1, "suffix_reduce": 1,
-                          "suffix_replay": 1}
+    assert seen[0][0] == {"phase1": 1, "phase3": 1, "whiten_sweep": 1, "column_elements": 1,
+                          "suffix_reduce": 1, "suffix_replay": 1}
     monkeypatch.setattr(tdtc, "SCAN_BATCH_STEPS", 2 * 3100)
     calls.clear()
     chunked = _scan_request(c, c["P"], torch.float32)
